@@ -1,10 +1,10 @@
-"""dlrm_tpu — a TPU-native DLRM training framework (JAX/XLA/Pallas/pjit).
+"""dlrm_tpu — a DLRM training framework in JAX (XLA, Pallas, shard_map).
 
 Brand-new implementation with the capabilities of darchr/DLRM.jl (reference
 mounted at /root/reference; structural map in SURVEY.md): end-to-end DLRM
 CTR training on Criteo, validated against the reference's PyTorch HDF5
-fixtures, with sharded embedding tables, compressed sparse gradients, fused
-interaction kernels, and a single jitted train step.
+fixtures, with sharded embedding tables, compressed sparse gradients, and a
+single jitted train step, running on NVIDIA GPUs.
 """
 
 from dlrm_tpu.config import (

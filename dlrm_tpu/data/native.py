@@ -1,8 +1,9 @@
 """ctypes bindings for the native (C++) Criteo data engine.
 
-Loads native/libdlrm_data.so (built by ``make -C native``; ``build()`` will
-invoke the compiler on demand).  Pure-Python fallbacks in criteo.py keep
-everything working when the library is absent.
+Loads native/libdlrm_data.so, which is built from the committed source
+(``make -C native``) at first use: the library is never committed.  Pure-
+Python fallbacks in criteo.py keep everything working where no compiler is
+available.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def _load() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
-    if not os.path.exists(_SO_PATH):
+    if not os.path.exists(_SO_PATH) and not _make():
         _load_failed = True
         return None
     try:
@@ -67,22 +68,34 @@ def _load() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def _make() -> bool:
+    """Run ``make -C native`` under an exclusive file lock, so concurrent
+    first uses (test workers, loader threads) build the library once."""
+    import fcntl
+
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                           capture_output=True)
+        except FileNotFoundError:  # no make / compiler in this image
+            return False
+        except subprocess.CalledProcessError as e:
+            # surface the compiler's complaint — a bare False hides why
+            import sys
+            print("native build failed:\n"
+                  f"{e.stderr.decode(errors='replace')}", file=sys.stderr)
+            return False
+    return True
+
+
 def build() -> bool:
     """Compile the native library in place (idempotent)."""
     global _load_failed
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
-        _load_failed = False
-        return _load() is not None
-    except FileNotFoundError:
+    if not _make():
         return False
-    except subprocess.CalledProcessError as e:
-        # surface the compiler's complaint — a bare False hides why
-        import sys
-        print(f"native build failed:\n{e.stderr.decode(errors='replace')}",
-              file=sys.stderr)
-        return False
+    _load_failed = False
+    return _load() is not None
 
 
 def available() -> bool:

@@ -3,15 +3,15 @@
 The reference hides data-marshaling latency with Polyester threads inside
 ``DACLoader.load!`` (/root/reference/src/data/criteo.jl:284-344) and hides
 slow-tier writes with the BatchUpdater producer/consumer pipeline
-(src/model/embedding_update.jl, SURVEY §2.4 P4).  On TPU the equivalent is
-keeping the host→HBM transfer of batch N+1..N+k in flight while the device
-runs step N:
+(src/model/embedding_update.jl, SURVEY §2.4 P4).  Here the equivalent is
+keeping the host→device transfer of batch N+1..N+k in flight while the
+device runs step N:
 
 * a background thread pulls host batches from the source iterator and
   ``jax.device_put``s them (device transfers are async in JAX — the put
   returns immediately and the copy overlaps device compute);
 * a bounded queue (``size`` batches) provides backpressure so at most
-  ``size`` batches of HBM are pinned by the pipeline;
+  ``size`` batches of device memory are held by the pipeline;
 * iteration order and contents are exactly the source's (pure plumbing).
 
 Works with any iterator of pytrees (numpy or jax arrays) — DACLoader,

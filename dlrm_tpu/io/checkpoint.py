@@ -3,7 +3,7 @@
 The reference has NO checkpoint writer — it can only *load* PyTorch-exported
 HDF5 models (/root/reference/src/data/criteo.jl:464-534) and persists just
 preprocessing artifacts (criteo.jl:196-199).  SURVEY.md §5 calls for real
-checkpointing in the TPU build: sharded table shards written in parallel,
+checkpointing: sharded table shards written in parallel,
 resume with arbitrary re-sharding on restore.
 
 Design:
@@ -38,7 +38,11 @@ except ImportError:  # pragma: no cover
 
 
 def _require_ocp():
-    assert ocp is not None, "orbax-checkpoint required for checkpointing"
+    if ocp is None:
+        raise SystemExit(
+            "checkpointing needs the 'orbax-checkpoint' package (import "
+            "orbax.checkpoint failed); install it, or run without "
+            "--ckpt-dir")
 
 
 def _abstract_from_metadata(tree: Any) -> Any:

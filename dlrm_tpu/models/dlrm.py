@@ -13,7 +13,7 @@ Parameters are a plain pytree::
 
 with all embedding tables stacked into one array (see ops/embedding.py) so a
 whole batch is one fused gather.  Stage boundaries are wrapped in
-``jax.named_scope`` — the TPU-native analog of the reference's zero-cost
+``jax.named_scope`` — the JAX analog of the reference's zero-cost
 callback telemetry (model.jl:130-166): scopes show up in ``jax.profiler``
 traces for per-phase timing without perturbing compilation.
 """
@@ -115,8 +115,8 @@ def forward_from_pooled(dense_params: dict, pooled: jax.Array,
         x = mlp_apply(dense_params["bottom"], dense, final="relu",
                       compute_dtype=cd)
     with jax.named_scope("interaction"):
-        if config.interaction_impl == "pallas":
-            from dlrm_tpu.ops.interaction_pallas import fused_dot_interaction
+        if config.interaction_impl == "fused":
+            from dlrm_tpu.ops.interaction_triton import fused_dot_interaction
             z = fused_dot_interaction(x, pooled.astype(x.dtype),
                                       pad_to=config.interaction_pad_to)
         elif config.interaction_impl == "pairwise":

@@ -2,7 +2,7 @@
 
 Replaces the reference's EmbeddingTables.jl (SIMD gather/scatter kernels,
 ``maplookup`` strategies, ``SparseEmbeddingUpdate`` compressed gradients,
-``SparseIndexer`` dedup — see SURVEY.md §2.2).  The TPU-native design:
+``SparseIndexer`` dedup — see SURVEY.md §2.2).  The design:
 
 * All tables share one embedding dimension (as in the reference) and are
   **stacked row-wise into a single array** ``(total_rows, D)``.  A whole
@@ -94,7 +94,7 @@ def sparse_value_and_grad(
 
     The gather happens *outside* the differentiated region, so autodiff
     computes d(loss)/d(gathered rows) — shape (B, T[, H], D) — which is
-    returned compressed as (flat_ids, rows).  This is the TPU-native
+    returned compressed as (flat_ids, rows).  This is the JAX
     equivalent of Zygote's pullback returning ``SparseEmbeddingUpdate``
     (reference train.jl:220-226, never densified).
     """
@@ -164,24 +164,23 @@ def dedup_sparse_grad(grad: SparseGrad, *, max_unique: int | None = None
 
 # -- lane-packed, chunked storage (the engine format) ------------------------
 #
-# Two measured TPU facts shape the storage layout (v5e, B=32k ids):
+# The storage layout:
 #
-# 1. TPU tiled layouts pad an array's minor dimension to 128 lanes, so an
-#    (R, 16) f32 table either occupies 8x its logical bytes (T(8,128)
-#    layout) or forces XLA's gather/scatter onto a slow narrow-row path.
-#    Packing PACK = 128 // D logical rows into each 128-lane physical row
-#    fixes both (scatter 111 -> 35 ns/row, gather 32 -> 22 ns/row).
-# 2. XLA's TPU scatter rate falls off a cliff when the updated operand
-#    exceeds ~1 GiB (22 -> 75 ns/row between 1.0 and 1.5 GiB), so the stack
-#    is split into chunks of <= config.chunk_budget_bytes (whole tables,
-#    first-fit-decreasing); per-chunk scatters are independent ops XLA can
-#    also overlap.
+# 1. PACK = 128 // D logical rows share each 128-wide physical row, so a
+#    narrow (R, 16) table is gathered and scattered as whole 512-byte
+#    rows.
+# 2. The stack is split into chunks of <= config.chunk_budget_bytes (whole
+#    tables, first-fit-decreasing); per-chunk scatters are independent ops
+#    XLA can overlap.
+#
+# Both were tuned on the previous accelerator; whether they pay on the GPU
+# is not yet measured.
 #
 # Engine format: ``emb`` is a TUPLE of per-chunk (rows, row_width) arrays.
 # Tables are padded to whole physical rows (tables never share one); slot
-# extraction/expansion are tiny one-hot einsums that ride the MXU.  This
-# replaces the reference's SIMD-width-aware row layout concerns
-# (EmbeddingTables.jl SIMD kernels) with the TPU lane/HBM equivalent.
+# extraction/expansion are elementwise selects, exact at any matmul
+# precision.  This replaces the reference's SIMD-width-aware row layout
+# concerns (EmbeddingTables.jl SIMD kernels).
 
 def pack_tables(emb, config):
     """(total_rows, D) logical stack -> tuple of per-chunk packed arrays."""
@@ -278,33 +277,37 @@ def chunk_translate(ids: jax.Array, config, tables):
     return po + ids // p, ids % p
 
 
-def extract_slots(g128: jax.Array, slot: jax.Array, config=None,
-                  compute_dtype=jnp.float32, *, pack: int = None,
-                  d: int = None) -> jax.Array:
+def _slot_mask(slot: jax.Array, pack: int) -> jax.Array:
+    """(..., pack, 1) boolean: True at each row's own slot."""
+    return (jnp.arange(pack, dtype=slot.dtype) == slot[..., None])[..., None]
+
+
+def extract_slots(g128: jax.Array, slot: jax.Array, config=None, *,
+                  pack: int = None, d: int = None) -> jax.Array:
     """(..., row_width) gathered physical rows + slot -> (..., D) logical
     rows.  Geometry from ``config`` or explicit ``pack``/``d``.
 
-    One-hot einsum so the extraction runs on the MXU; exact (one-hot of
-    int in [0, PACK), values 0/1)."""
+    An elementwise select and a sum of one value with zeros, so the stored
+    row comes back bit for bit.  (A one-hot matmul would run in TF32 at
+    the GPU's default precision and round table values to 10 mantissa
+    bits; the select is also faster, measured in PERF.md.)"""
     if pack is None:
         pack, d = config.pack, config.feature_size
     g = g128.reshape(g128.shape[:-1] + (pack, d))
-    oh = jax.nn.one_hot(slot, pack, dtype=compute_dtype)
-    return jnp.einsum("...p,...pd->...d", oh,
-                      g.astype(compute_dtype)).astype(g128.dtype)
+    return jnp.sum(jnp.where(_slot_mask(slot, pack), g,
+                             jnp.zeros((), g.dtype)), axis=-2, dtype=g.dtype)
 
 
-def expand_slots(rows: jax.Array, slot: jax.Array, config=None,
-                 compute_dtype=jnp.float32, *, pack: int = None
-                 ) -> jax.Array:
+def expand_slots(rows: jax.Array, slot: jax.Array, config=None, *,
+                 pack: int = None) -> jax.Array:
     """(..., D) update rows + slot -> (..., D*pack) physical-row updates
-    with zeros in the other slots (transpose of :func:`extract_slots`)."""
+    with zeros in the other slots (transpose of :func:`extract_slots`;
+    exact, an elementwise select)."""
     if pack is None:
         pack = config.pack
-    oh = jax.nn.one_hot(slot, pack, dtype=compute_dtype)
-    out = jnp.einsum("...p,...d->...pd", oh, rows.astype(compute_dtype))
-    return out.reshape(rows.shape[:-1] + (pack * rows.shape[-1],)
-                       ).astype(rows.dtype)
+    out = jnp.where(_slot_mask(slot, pack), rows[..., None, :],
+                    jnp.zeros((), rows.dtype))
+    return out.reshape(rows.shape[:-1] + (pack * rows.shape[-1],))
 
 
 def chunk_gather(chunk: jax.Array, phys: jax.Array, slot: jax.Array,
@@ -354,44 +357,39 @@ def apply_sgd_chunked(emb, ids: jax.Array, d_rows: jax.Array, lr, config,
 def partition_tables(table_sizes, threshold: int):
     """Split tables into (small, big) index lists by row count.
 
-    Strategy selection for the mixed embedding engine: on TPU v5e, XLA's
-    gather/scatter run at ~22/~105 ns *per row* (latency-bound, measured),
-    while a one-hot matmul lookup costs ~4*B*R bytes of HBM traffic — so for
-    tables below a few tens of thousands of rows the MXU path wins, sums
-    duplicate-id gradients exactly, and needs no scatter at all.  This is
-    the TPU analog of the reference's pluggable lookup strategies
-    (EmbeddingTables maplookup strategies, SURVEY.md §2.2).
+    Strategy selection for the mixed embedding engine: small tables are
+    looked up inside the differentiated function (:func:`small_table_lookup`)
+    so autodiff hands back a dense (R, D) table gradient, applied as one
+    contiguous add; big tables keep compressed (ids, rows) gradients and a
+    scatter-add.  The analog of the reference's pluggable lookup
+    strategies (EmbeddingTables maplookup strategies, SURVEY.md §2.2).
     """
     small = [i for i, s in enumerate(table_sizes) if s <= threshold]
     big = [i for i, s in enumerate(table_sizes) if s > threshold]
     return tuple(small), tuple(big)
 
 
-def onehot_lookup(table: jax.Array, ids: jax.Array,
-                  compute_dtype=jnp.bfloat16) -> jax.Array:
-    """Lookup via one-hot matmul on the MXU: (B[,H], R) @ (R, D) -> (B, D).
+def small_table_lookup(table: jax.Array, ids: jax.Array,
+                       compute_dtype=jnp.bfloat16) -> jax.Array:
+    """Pooled lookup of a small logical (R, D) table: (B[, H]) ids ->
+    (B, D) float32.
 
-    Differentiable: the table cotangent is the transpose matmul
-    onehot^T @ d_pooled — a DENSE (R, D) gradient, which is fine (and
-    faster than scatter) precisely because R is small.  Multi-hot ids sum
-    via the matmul itself.
+    A gather, so stored rows come back exactly at any matmul precision.
+    Differentiable: the table cotangent is a DENSE (R, D) gradient (a
+    scatter-add into zeros), which is what the callers apply as one
+    contiguous add — fine precisely because R is small.  Multi-hot ids are
+    summed in float32.
 
-    Precision note: under ``compute_dtype=bfloat16`` (the --bf16 mode)
-    the table operand is bf16-rounded, so small-table lookups lose
-    mantissa bits that big tables' gathers keep — consistent with bf16
-    compute everywhere else in that mode (MLPs, interaction), but it
-    makes results discontinuous in table size at small_table_threshold.
-    f32 configs (the default) keep f32 operands with f32 accumulation
-    (preferred_element_type); bit-exactness additionally needs the MXU
-    not to round operands — validation.py pins
-    default_matmul_precision('highest') for its parity runs.
+    ``compute_dtype`` rounds the looked-up values (bf16 under --bf16,
+    consistent with bf16 compute everywhere else in that mode; it makes
+    results discontinuous in table size at small_table_threshold, since
+    big tables' gathers keep full precision).
     """
-    r = table.shape[0]
-    oh = jax.nn.one_hot(ids, r, dtype=compute_dtype)
-    if oh.ndim == 3:  # (B, H, R) multi-hot: pool by summing the count matrix
-        oh = jnp.sum(oh, axis=1)
-    return jnp.dot(oh, table.astype(compute_dtype),
-                   preferred_element_type=jnp.float32)
+    rows = jnp.take(table, ids, axis=0).astype(compute_dtype).astype(
+        jnp.float32)
+    if rows.ndim == 3:  # (B, H, D) multi-hot: sum-pool the hot dim
+        rows = jnp.sum(rows, axis=1)
+    return rows
 
 
 def table_order_permutation(small, big) -> Tuple[int, ...]:
@@ -433,10 +431,10 @@ def gather_tables(emb, ids: jax.Array, config, tables=None) -> jax.Array:
 
 
 def mixed_lookup(emb: jax.Array, ids: jax.Array, config,
-                 onehot_dtype=None) -> jax.Array:
+                 small_dtype=None) -> jax.Array:
     """Pooled lookup using the per-table strategy split: gather for big
-    tables (one fused take, lane-packed when config.is_packed), one-hot MXU
-    matmul for small ones.  Differentiable end-to-end (big-table grads
+    tables (one fused take, lane-packed when config.is_packed), a
+    differentiable per-table take for small ones.  Differentiable end-to-end (big-table grads
     densify under plain jax.grad — training uses the machinery in
     train/train.py to keep them compressed).
 
@@ -451,8 +449,8 @@ def mixed_lookup(emb: jax.Array, ids: jax.Array, config,
                                   config.small_table_threshold)
     if not small:
         return pool(gather_tables(emb, ids, config))
-    if onehot_dtype is None:
-        onehot_dtype = config.compute_dtype
+    if small_dtype is None:
+        small_dtype = config.compute_dtype
     parts = []
     if big:
         ids_big = ids[:, big] if ids.ndim == 2 else ids[:, big, :]
@@ -460,7 +458,7 @@ def mixed_lookup(emb: jax.Array, ids: jax.Array, config,
     for t in small:
         tab = get_logical_table(emb, config, t)
         idt = ids[:, t] if ids.ndim == 2 else ids[:, t, :]
-        parts.append(onehot_lookup(tab, idt, onehot_dtype)[:, None, :])
+        parts.append(small_table_lookup(tab, idt, small_dtype)[:, None, :])
     emb_dtype = emb[0].dtype if isinstance(emb, (tuple, list)) else emb.dtype
     stacked = jnp.concatenate(parts, axis=1).astype(emb_dtype)
     return stacked[:, table_order_permutation(small, big), :]

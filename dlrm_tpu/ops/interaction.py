@@ -10,12 +10,13 @@ output, optionally zero-padding the tail to a width multiple
 (``POST_INTERACTION_PAD_TO_MUL``, model.jl:32 / interact.jl:351-355).
 
 This is the oracle implementation (the analog of the reference's
-``dot_interaction_reference``, interact.jl:7-31); the fused Pallas kernel in
-``interaction_pallas.py`` is tested against it forward and backward.
+``dot_interaction_reference``, interact.jl:7-31); the fused GPU kernel in
+``interaction_triton.py`` is tested against it forward and backward.
 
-TPU notes: the Gram matrix is a batched matmul that XLA maps onto the MXU;
-the triangular extraction is a static gather over the flattened (F*F) axis,
-which XLA lowers to a cheap take since the indices are compile-time constant.
+The Gram matrix is a batched matmul; the triangular extraction is a static
+gather over the flattened (F*F) axis (the indices are compile-time
+constants).  Both materialize (B, F, F) tensors in device memory, which
+is what the fused kernel avoids.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def dot_interaction(x: jax.Array, feats: jax.Array, pad_to: int = 1
                     ) -> jax.Array:
     """Interaction output (B, bottom_out + F(F-1)/2 + padding).
 
-    Gram-matrix formulation (batched MXU matmul + static triangular gather).
+    Gram-matrix formulation (batched matmul + static triangular gather).
     """
     t = stack_features(x, feats)
     b, f, _ = t.shape
@@ -73,12 +74,12 @@ def dot_interaction(x: jax.Array, feats: jax.Array, pad_to: int = 1
 
 def dot_interaction_pairwise(x: jax.Array, feats: jax.Array, pad_to: int = 1
                              ) -> jax.Array:
-    """VPU formulation: compute only the P needed pair dot products as
-    elementwise multiply + reduce over D (no F x F Gram matrix).
+    """Elementwise formulation: compute only the P needed pair dot
+    products as elementwise multiply + reduce over D (no F x F Gram
+    matrix).
 
     zflat[b, p] = sum_d T[b, i_p, d] * T[b, j_p, d].  Trades the Gram
-    batched matmul (tiny 27x27 MXU tiles at ~4% utilization) for VPU
-    work that XLA fuses; often wins for small feature counts.
+    batched matmul for elementwise work that XLA fuses.
     """
     t = stack_features(x, feats)
     b, f, _ = t.shape

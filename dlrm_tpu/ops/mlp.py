@@ -2,9 +2,10 @@
 
 The reference routes all dense math through Intel oneDNN C++ primitives
 (OneDNN.Dense, /root/reference/src/model/model.jl:85) with opaque blocked
-layouts.  On TPU the equivalent is simply ``x @ w + b`` under jit: XLA tiles
-the matmul onto the MXU and fuses the bias add + activation into the matmul
-epilogue — there is no user-visible layout concept to manage.
+layouts.  Here the equivalent is simply ``x @ w + b`` under jit: XLA hands
+the matmul to cuBLAS or its own generated kernel and fuses the bias add +
+activation into the epilogue — there is no user-visible layout concept to
+manage.
 
 Weights are stored (in, out) so the forward is row-major ``x @ w``.
 Activation scheme mirrors create_mlp (model.jl:72-93): the bottom MLP is ReLU

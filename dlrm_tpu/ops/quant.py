@@ -2,11 +2,10 @@
 
 The reference has no quantized-inference story (its tables are f32; the
 BF16-embeddings experiment halves them, /root/reference: README.md:19 and
-the `experiments` wrappers).  On TPU the capacity argument is sharp: the
-Kaggle fs=128 stack is 17.3 GB in f32 — over one v5e's 16 GB HBM — and
-8.6 GB in bf16; symmetric per-row int8 brings it to ~4.4 GB (+ scales),
-fitting single-chip serving with headroom and halving gather-side HBM
-traffic versus bf16.
+the `experiments` wrappers).  The Kaggle fs=128 stack is 17.3 GB in f32
+and 8.6 GB in bf16; symmetric per-row int8 brings it to ~4.4 GB (+
+scales), quartering gather-side memory traffic versus f32, and the
+Terabyte-vocabulary stack (~451 GB f32) to ~113 GB.
 
 Scheme: symmetric per-LOGICAL-row scales, ``scale = max|row| * (1/127)``
 (multiplication by the pre-rounded f32 reciprocal, NOT division: XLA's
@@ -152,7 +151,7 @@ def quantize_emb_host(emb, config, scale_dtype=np.float32) -> QuantEmb:
     """Host-side (numpy) quantization — the serving load path.
 
     The whole point of int8 serving is models whose f32/bf16 tables do
-    NOT fit device HBM (Kaggle fs=128: 17.3 GB f32 on a 16 GB v5e), so
+    NOT fit device memory (the Terabyte vocabulary: ~451 GB f32), so
     the full-precision stack must never be device_put: checkpoints
     restore as numpy host arrays, this quantizes them chunk-at-a-time in
     host memory, and only the int8 chunks + scales go to the device.
@@ -179,8 +178,8 @@ def quantize_sharded_stack(sharded: np.ndarray, pack: int, d: int,
     Scales are per LOGICAL row, so a row quantizes identically wherever
     its physical row lives (engine chunk, shard stack) — padding/trash
     rows are all-zero and get scale 1.  This is the Terabyte serving
-    enabler: fs=128 tables are ~451 GB f32 / ~225 GB bf16 — over an
-    8-chip v5e slice's 128 GB HBM — vs ~113 GB int8+scales."""
+    enabler: fs=128 tables are ~451 GB f32 / ~225 GB bf16 — more than
+    four 80 GB cards hold — vs ~113 GB int8+scales."""
     n, r, w = sharded.shape
     x = np.asarray(sharded, dtype=np.float32).reshape(n, r, pack, d)
     q, s = _quant_logical_rows_np(x)
@@ -286,8 +285,7 @@ def quant_gather_tables(qemb: QuantEmb, ids: jax.Array, config,
             rows = q.astype(jnp.float32)
             scale = s[..., 0]
         else:
-            # slot-select FIRST (the shared one-hot extraction — exact on
-            # int8: values in [-127,127] are f32-representable), THEN one
+            # slot-select FIRST (the shared exact slot extraction), THEN one
             # scale multiply per OUTPUT element — not pack multiplies on
             # a (..., pack, D) f32 dequant of all packed neighbors
             rows = emb_ops.extract_slots(q, slot, config).astype(
@@ -306,7 +304,7 @@ def quant_gather_tables(qemb: QuantEmb, ids: jax.Array, config,
 def quant_mixed_lookup(qemb: QuantEmb, ids: jax.Array, config) -> jax.Array:
     """Pooled lookup from quantized storage, same strategy split as
     ``embedding.mixed_lookup``: int8 gather + dequant for big tables,
-    dequantize-whole + one-hot MXU matmul for small ones (small tables
+    dequantize-whole + gather for small ones (small tables
     are at most ``small_table_threshold`` rows — dequantizing them whole
     is cheaper than per-id scale plumbing).  Output is f32 (serving
     activations; the dense tower's compute_dtype applies downstream)."""
@@ -322,8 +320,8 @@ def quant_mixed_lookup(qemb: QuantEmb, ids: jax.Array, config) -> jax.Array:
     for t in small:
         tab = quant_get_logical_table(qemb, config, t)
         idt = ids[:, t] if ids.ndim == 2 else ids[:, t, :]
-        parts.append(emb_ops.onehot_lookup(tab, idt,
-                                           jnp.float32)[:, None, :])
+        parts.append(emb_ops.small_table_lookup(tab, idt,
+                                                jnp.float32)[:, None, :])
     stacked = jnp.concatenate(parts, axis=1)
     perm = emb_ops.table_order_permutation(small, big)
     return stacked[:, perm, :]

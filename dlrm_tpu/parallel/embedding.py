@@ -3,7 +3,7 @@
 The classic DLRM hybrid (SURVEY.md §2.4/P2): embedding tables are sharded
 across devices (each owns whole tables, placed by ``plan_placement``) while
 the batch is data-parallel over the SAME devices.  The lookup is a
-``shard_map`` with explicit ICI collectives:
+``shard_map`` with explicit collectives (NVLink between one host's cards):
 
     ids (B/N, T)  ──all_gather──►  ids (B, T)  [ints: cheap]
     local gather of owned tables ──► pooled (B, K, D)   [K = slots/shard]
@@ -17,7 +17,7 @@ comm volume is B·T·D/N instead of the full B·T·D of a data-parallel psum).
 
 The reference's counterpart is shared-memory: EmbeddingTables.jl lookup
 strategies + multithreaded compressed update (train.jl:283-290).  There, the
-"exchange" was cache coherence; here it is explicit all-to-all riding ICI.
+"exchange" was cache coherence; here it is an explicit all-to-all.
 
 Static-shape discipline: device-dependent metadata (slot→table map, local
 row offsets, validity mask) enters the shard_map as (N, K) arrays sharded on
@@ -244,11 +244,11 @@ def _update_check_kw(dcn_axis):
 
 def _xc(x, exchange_dtype):
     """Compress a collective operand to the wire dtype (``exchange_dtype``,
-    e.g. bf16 — half the ICI/DCN bytes of f32) before the exchange; the
+    e.g. bf16 — half the collective bytes of f32) before the exchange; the
     caller casts the result back.  None = uncompressed.  The compression
     is exactly one rounding applied at the exchange boundary: collectives
     only MOVE data (all_to_all/all_gather) or add disjoint-support
-    partials (the rs psum_scatter with one-hot lookups; multi-hot rs
+    partials (the rs psum_scatter with single-id lookups; multi-hot rs
     partials take one extra rounding per owning shard — see the
     rs_reduce_scatter note) — no other precision is lost inside the
     collective itself.  Measured inventory in SCALING.md: the fs=128
@@ -581,8 +581,8 @@ def sharded_lookup(emb: jax.Array, ids: jax.Array, *, mesh: Mesh,
     batch-sharded.
 
     ``exchange_dtype`` (e.g. jnp.bfloat16) compresses the activation
-    exchanges (slot/cs all_to_all, rs psum_scatter) to half the ICI
-    bytes; the result equals the f32 lookup rounded once to the wire
+    exchanges (slot/cs all_to_all, rs psum_scatter) to half the
+    collective bytes; the result equals the f32 lookup rounded once to the wire
     dtype (see :func:`_xc`).
 
     ``scales`` (N, local_rows, pack) + ``cs_scales`` (per-table

@@ -4,7 +4,7 @@ The reference trains with embedding tables deliberately evicted to a slow
 memory tier (Optane PMM) managed by CachedArrays.jl — a local/remote heap
 with explicit migration and a read/write permission state machine
 (/root/reference/src/DLRM.jl:47-67, src/cachedarrays.jl; SURVEY.md §2.2).
-On TPU the same capability — "tables bigger than fast memory" — maps to
+Here the same capability — "tables bigger than device memory" — maps to
 **host-memory-resident table shards with on-demand row movement**:
 
 * The stacked embedding array is split into a **device tier** (HBM) and a
@@ -14,7 +14,7 @@ On TPU the same capability — "tables bigger than fast memory" — maps to
 * Inside the ONE jitted train step, host-tier lookups move the batch's ids
   to host memory, run a raw ``lax.gather`` as sub-program scheduled on the
   host (``compute_on("device_host")``), and stream only the gathered rows
-  (B·T_host·D, a few MB) over PCIe to HBM — never the tables.
+  (B·T_host·D, a few MB) over PCIe to the device — never the tables.
 * The sparse SGD update runs ``lax.scatter_add`` host-side the same way, so
   gradients also cross PCIe compressed.  XLA overlaps the host gather of
   step N+1's spilled rows with device compute via its async host-offload
@@ -30,21 +30,16 @@ constants in the default memory space, which poisons host-memory-space type
 checking.  Correctness relies on the data pipeline's reindex guaranteeing
 in-range ids (data/criteo.py).
 
-**Layout (round 5): host-tier stacks cross the jit boundary FLAT (1-D).**
-The round-4 profiler trace (artifacts/r4_tpu/TRACE_ANALYSIS.md) showed a
-(N, D) pinned-host carry forcing full-stack layout conversions every
-step: the host scatter's result is host-linear ``{1,0:T(1)L(1024)}``
-while the jit-boundary pinned buffer is device-tiled
-``{0,1:T(8,128)S(5)}``, so XLA staged the 620 MB stack THROUGH THE
-DEVICE (reshape + copy + 44 ms S(5) copy) in both directions.  A 1-D
-buffer has identical host-linear and device-tiled layouts, so the stacks
-(tables and Adagrad accumulator slabs) are carried flat and
-bitcast-reshaped to (rows, width) inside the ``compute_on`` regions.
-Measured on the v5e (bench_hosttier_layout.py): 89.75 -> 67.25 ms/step
-for the 512 MB gather+scatter core.  The remaining linear-in-stack cost
-is the functional host scatter itself (bench_hosttier_scatter.py:
-~11 GB/s full-stack copy; compute_on region outputs do not alias donated
-inputs, unlike XLA:CPU's in-place donated scatters).
+**Layout: host-tier stacks cross the jit boundary FLAT (1-D).**  A 2-D
+pinned-host carry can get a device-tiled layout at the jit boundary
+while the host scatter produces a host-linear one, and XLA then stages
+the whole stack through the device to convert between them every step.
+A 1-D buffer has one layout everywhere, so the stacks (tables and
+Adagrad accumulator slabs) are carried flat and bitcast-reshaped to
+(rows, width) inside the ``compute_on`` regions.  The remaining
+linear-in-stack cost is the functional host scatter itself
+(``compute_on`` region outputs do not alias donated inputs, unlike
+XLA:CPU's in-place donated scatters).
 """
 
 from __future__ import annotations
@@ -60,6 +55,7 @@ from jax import lax
 from jax.experimental import compute_on
 
 from dlrm_tpu.config import DLRMConfig
+from dlrm_tpu.utils.backend import can_pin_host_outputs
 
 
 _BACKEND_PRIMED = False
@@ -83,11 +79,7 @@ def ensure_backend_primed() -> None:
 def host_memory_supported(device=None) -> bool:
     """True if the backend exposes a pinned_host memory space."""
     device = device or jax.devices()[0]
-    try:
-        kinds = {m.kind for m in device.addressable_memories()}
-    except Exception:
-        return False
-    return "pinned_host" in kinds
+    return "pinned_host" in {m.kind for m in device.addressable_memories()}
 
 
 # -- tier planning --------------------------------------------------------------
@@ -164,12 +156,10 @@ def device_subconfig(plan: TierPlan, config: DLRMConfig
                      ) -> Optional[DLRMConfig]:
     """DLRMConfig describing ONLY the device-tier tables.
 
-    Round 5: the device tier stores its tables in the PRODUCTION engine
-    format (lane-packed chunked storage, ops/embedding.py) under this
-    sub-config — the round-4 design held a plain (R_dev, D) stack, which
-    at fs=16 tiles to 8× its bytes (fact 1) and made every device-tier
-    scatter a 20.4 ms full-stack pass (profiler trace,
-    artifacts/r5_tpu).  Table order inside the sub-config is
+    The device tier stores its tables in the PRODUCTION engine format
+    (lane-packed chunked storage, ops/embedding.py) under this
+    sub-config, so its updates are per-chunk scatters rather than a
+    full-stack pass.  Table order inside the sub-config is
     ``plan.device_tables`` (global order); ids are per-table local, so
     selecting the device columns of ``sparse`` feeds the engine
     directly.  Returns None when no tables live on device."""
@@ -212,8 +202,6 @@ def split_tiers(emb: np.ndarray, plan: TierPlan, config: DLRMConfig,
                                          dev_cfg))
     # host tier carried FLAT across the jit boundary (module docstring)
     host_np = stack(plan.host_tables).reshape(-1)
-    # same backend fallback as _host_sharding / place_tiered: CPU tests
-    # have no pinned space — default memory there, not a crash
     emb_host = jax.device_put(host_np, _host_sharding(device))
     return emb_dev, emb_host
 
@@ -347,11 +335,8 @@ def _tier_forward_backward(dense_params, emb_dev, emb_host, dense, sparse,
     Round 5: the device tier is PRODUCTION ENGINE storage under
     :func:`device_subconfig` — its lookups follow the engine's mixed
     strategy (big tables: compressed gathered-row grads via one fused
-    lane-packed gather per chunk; small tables: one-hot MXU with dense
-    (R, D) grads), exactly like train.train_step.  The round-4 plain
-    (R_dev, D) stack tiled to 8x its bytes at fs=16 and made every
-    device-tier update a 20 ms full-stack pass (profiler trace,
-    artifacts/r5_tpu).
+    lane-packed gather per chunk; small tables: a differentiable gather
+    with dense (R, D) grads), exactly like train.train_step.
 
     ``host_rows``: pre-gathered host-tier rows (the pipelined/block
     paths' payload); ``None`` gathers from ``emb_host`` inline.
@@ -404,11 +389,11 @@ def _tier_forward_backward(dense_params, emb_dev, emb_host, dense, sparse,
 
     def inner(dp, rows_big_, small_tabs_, host_rows_):
         parts = [emb_ops.pool(rows_big_)]
-        with jax.named_scope("lookup_onehot"):
+        with jax.named_scope("lookup_small"):
             for j, t in enumerate(small):
                 idt = (dev_sparse[:, t] if dev_sparse.ndim == 2
                        else dev_sparse[:, t, :])
-                parts.append(emb_ops.onehot_lookup(
+                parts.append(emb_ops.small_table_lookup(
                     small_tabs_[j], idt, config.compute_dtype
                     )[:, None, :])
         parts.append(host_rows_ if host_rows_.ndim == 3
@@ -428,7 +413,7 @@ def _tier_forward_backward(dense_params, emb_dev, emb_host, dense, sparse,
 
 
 def _small_sgd_add(new_emb, dev_cfg, small, d_smalls, lr):
-    """Contiguous dense SGD adds for the one-hot small tables onto their
+    """Contiguous dense SGD adds for the small (dense-gradient) tables onto their
     chunk slices (shared by _device_sgd_apply and tiered_train_block —
     pad slots get zero updates and round-trip unchanged).  Mutates and
     returns ``new_emb`` (a list of chunks)."""
@@ -451,7 +436,7 @@ def _device_sgd_apply(emb_dev, dev_cfg, ids_dev_big, d_rows_big, d_smalls,
                       lr):
     """train_step's mixed SGD update on the device sub-config storage:
     one scatter per chunk for big tables, contiguous dense adds for the
-    one-hot small tables."""
+    small tables."""
     from dlrm_tpu.ops import embedding as emb_ops
 
     small, big = emb_ops.partition_tables(dev_cfg.table_sizes,
@@ -503,15 +488,14 @@ def tiered_train_block(params, dense, sparse, labels, *,
     block (train.train_block's relaxation, applied per tier).
 
     Why: the functional host scatter copies the whole pinned stack
-    (bench_hosttier_scatter.py: ~11 GB/s, linear in stack bytes —
-    compute_on outputs do not alias donated inputs), and each host call
-    carries ~13 ms of fixed overhead.  Amortizing both over K steps is
+    (linear in stack bytes — compute_on outputs do not alias donated
+    inputs), and each host call carries a fixed overhead.  Amortizing both over K steps is
     the same lever the reference's BatchUpdater applies to its slow PMM
     tier (src/model/embedding_update.jl:1-37: aggregate updates in DRAM,
     trickle to the slow tier behind the forward pass).
 
     Exactness contract (mirrors train_block):
-      * dense params and the device tier's SMALL (one-hot) tables update
+      * dense params and the device tier's SMALL (dense-gradient) tables update
         every micro-step — carried, never stale;
       * device BIG-table and host-tier rows are read as of block entry
         (stale < ``block``) and their commuting scatter-adds coalesce at
@@ -597,7 +581,7 @@ def make_tiered_train_block(config: DLRMConfig, lr: float, plan: TierPlan,
     ensure_backend_primed()
     device = device or jax.devices()[0]
     if pin_host_output is None:
-        pin_host_output = device.platform == "tpu"
+        pin_host_output = can_pin_host_outputs(device)
     step = functools.partial(tiered_train_block, config=config, lr=lr,
                              plan=plan)
     if not pin_host_output:
@@ -676,7 +660,7 @@ def make_tiered_pipelined_step(config: DLRMConfig, lr: float,
     ensure_backend_primed()
     device = device or jax.devices()[0]
     if pin_host_output is None:
-        pin_host_output = device.platform == "tpu"
+        pin_host_output = can_pin_host_outputs(device)
     step = functools.partial(tiered_train_step_pipelined, config=config,
                              lr=lr, plan=plan)
     if not pin_host_output:
@@ -685,14 +669,11 @@ def make_tiered_pipelined_step(config: DLRMConfig, lr: float,
                                                 memory_kind="pinned_host")
     out_shardings = ((({"bottom": None, "top": None, "emb_dev": None,
                         "emb_host": sh_host}), None), None)
-    # NO donation here (unlike the other tiered makers): with the round-5
-    # engine-chunk device tier, donating into the pipelined program —
-    # whose tail gather reads the freshly-scattered host stack — SIGABRTs
-    # the TPU compiler (tpu_compile_helper, bisected on-chip: donate
-    # crashes with or without output pinning, no-donate+pinned compiles
-    # and matches the inline step).  Cost: the device tier and pinned
-    # stack are transiently 2x resident; revisit when the toolchain
-    # moves.
+    # NO donation here (unlike the other tiered makers): donating into
+    # the pipelined program, whose tail gather reads the freshly-scattered
+    # host stack, crashed the compiler this step was first built with;
+    # not yet retried on the GPU.  Cost: the device tier and pinned stack
+    # are transiently 2x resident.
     return jax.jit(step, out_shardings=out_shardings)
 
 
@@ -730,7 +711,7 @@ def _device_tier_opt_apply(emb_dev, acc, dev_cfg, ids_dev_big, d_rows_big,
                            d_smalls, *, optimizer, lr_t):
     """Exact Adagrad-family update on the device tier's ENGINE storage:
     big tables via the production per-chunk hybrid (dedup-then-apply),
-    small (one-hot) tables via dense-table Adagrad on their chunk views.
+    small tables via dense-table Adagrad on their chunk views.
     ``acc`` is the tuple of per-chunk accumulators; returns
     (new_emb_dev, new_acc)."""
     from dlrm_tpu.ops import embedding as emb_ops
@@ -968,7 +949,7 @@ def make_tiered_train_block_opt(config: DLRMConfig, *, optimizer: str,
     ensure_backend_primed()
     device = device or jax.devices()[0]
     if pin_host_output is None:
-        pin_host_output = device.platform == "tpu"
+        pin_host_output = can_pin_host_outputs(device)
     step = functools.partial(tiered_train_block_opt, config=config,
                              optimizer=optimizer, lr=lr, plan=plan)
     if not pin_host_output:
@@ -1011,13 +992,8 @@ def init_tiered_opt_state(params: dict, *, config: DLRMConfig,
         host_shape = ((host_rows * config.feature_size,)
                       if optimizer == "adagrad"
                       else (host_rows,))
-        host_sh = jax.sharding.SingleDeviceSharding(
-            device, memory_kind="pinned_host")
-        try:
-            state["host_acc"] = jax.device_put(
-                jnp.zeros(host_shape, jnp.float32), host_sh)
-        except Exception:  # backends without pinned_host (CPU tests)
-            state["host_acc"] = jnp.zeros(host_shape, jnp.float32)
+        state["host_acc"] = jax.device_put(
+            jnp.zeros(host_shape, jnp.float32), _host_sharding(device))
     return state
 
 
@@ -1029,7 +1005,7 @@ def make_tiered_train_step_opt(config: DLRMConfig, *, optimizer: str, lr,
     ensure_backend_primed()
     device = device or jax.devices()[0]
     if pin_host_output is None:
-        pin_host_output = device.platform == "tpu"
+        pin_host_output = can_pin_host_outputs(device)
     step = functools.partial(tiered_train_step_opt, config=config,
                              optimizer=optimizer, lr=lr, plan=plan)
     if not pin_host_output:
@@ -1047,15 +1023,16 @@ def make_tiered_train_step_opt(config: DLRMConfig, *, optimizer: str, lr,
 
 def make_tiered_train_step(config: DLRMConfig, lr: float, plan: TierPlan,
                            device=None, pin_host_output: Optional[bool] = None):
-    """Jitted two-tier step; on TPU the host-tier stack stays pinned in host
-    memory across steps (donated in, pinned out).  The CPU backend cannot
-    annotate output placement (no annotate_device_placement custom call), so
-    there the updated host stack round-trips through default memory — same
-    numerics, used only by tests."""
+    """Jitted two-tier step.  Where the backend can place jit outputs in
+    pinned_host (utils/backend.can_pin_host_outputs), the host-tier stack
+    stays pinned in host memory across steps (donated in, pinned out).
+    The CPU backend cannot (no annotate_device_placement custom call), so
+    there the updated host stack round-trips through default memory —
+    same numerics, used only by tests."""
     ensure_backend_primed()
     device = device or jax.devices()[0]
     if pin_host_output is None:
-        pin_host_output = device.platform == "tpu"
+        pin_host_output = can_pin_host_outputs(device)
     step = functools.partial(tiered_train_step, config=config, lr=lr,
                              plan=plan)
     if not pin_host_output:
@@ -1080,10 +1057,14 @@ def init_tiered_params(params: dict, plan: TierPlan, config: DLRMConfig,
 
 
 def _host_sharding(device):
-    if host_memory_supported(device):
-        return jax.sharding.SingleDeviceSharding(device,
-                                                 memory_kind="pinned_host")
-    return device  # CPU tests: no pinned space, default memory
+    """The host tier's placement: ``pinned_host`` memory on ``device``.
+    A backend without that memory space has no host tier at all."""
+    if not host_memory_supported(device):
+        raise ValueError(
+            f"device {device} exposes no pinned_host memory space; the "
+            "host tier needs one")
+    return jax.sharding.SingleDeviceSharding(device,
+                                             memory_kind="pinned_host")
 
 
 def place_tiered(restored: dict, device=None, plan: TierPlan = None,

@@ -7,13 +7,14 @@ data-parallelism for the MLPs AND model-parallel table sharding for the
 embeddings (the classic hybrid).
 
 Multi-host has two shapes:
-  * a 1-D mesh spanning every device of a pod slice (all-to-all rides ICI
-    end to end) — ``init_distributed`` + ``make_mesh``;
-  * a 2-D hybrid ``(h, d)`` mesh for multi-SLICE (DCN-connected) scale:
-    tables shard over the ICI axis ``d`` only, batch data-parallelism
-    spans both axes, and the sparse updates are all-gathered over ``h``
+  * a 1-D mesh spanning every device of every process (the all-to-all
+    crosses hosts) — ``init_distributed`` + ``make_mesh``;
+  * a 2-D hybrid ``(h, d)`` mesh: tables shard over the intra-host axis
+    ``d`` only (named ``ici`` in flags and comments: the cards of one host,
+    NVLink-joined), batch data-parallelism spans both axes, and the sparse
+    updates are all-gathered over the inter-host axis ``h`` (named ``dcn``)
     in compressed (ids, grad-rows) form so the tables stay replicated
-    across slices without a dense-table psum (parallel/embedding._dcn_fold).
+    across hosts without a dense-table psum (parallel/embedding._dcn_fold).
     Every sharded entry point (train steps, block step, adagrad, eval)
     detects the extra axis via ``dcn_axis_of`` and routes automatically.
 """
@@ -48,15 +49,16 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "d") -> Mesh:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize multi-host JAX (DCN) — call once per process before any
+    """Initialize multi-process JAX — call once per process before any
     device use.  No-ops when already initialized or single-process.
 
-    With TPU pod slices and no explicit arguments, JAX auto-discovers the
-    topology from the TPU environment; the explicit arguments cover GPU-like
-    or manual bring-up (and the CPU-backend integration tests, where
-    cross-process collectives ride gloo — jax's default cpu collectives
-    implementation).  After this, ``jax.devices()`` spans every host and
-    :func:`make_mesh` / :func:`make_hybrid_mesh` build global meshes.
+    A GPU cluster gives no topology to discover, so pass all three
+    arguments: the coordinator's ``host:port`` (process 0's address), the
+    number of processes and this process's id.  The CPU-backend
+    integration tests bring up the same way, with cross-process
+    collectives over gloo (jax's default CPU collectives).  After this,
+    ``jax.devices()`` spans every process and :func:`make_mesh` /
+    :func:`make_hybrid_mesh` build global meshes.
     """
     try:
         jax.distributed.initialize(
@@ -120,33 +122,28 @@ def local_batch_rows(sharding: NamedSharding, global_batch: int,
 
 
 def make_hybrid_mesh(ici_axis: str = "d", dcn_axis: str = "h") -> Mesh:
-    """2-D mesh for multi-slice/multi-host: the fast ICI dimension inside a
-    slice x the DCN dimension across slices/hosts.
+    """2-D mesh for multi-host: the fast intra-host dimension (``ici_axis``:
+    the cards of one host, joined all to all by NVLink) x the network
+    dimension across hosts (``dcn_axis``).
 
-    Built with ``mesh_utils.create_hybrid_device_mesh`` so device order puts
-    ICI neighbors adjacent — collectives along ``ici_axis`` ride ICI, and
-    only the (rare) cross-slice traffic touches DCN.  The DLRM hybrid maps
-    batch data-parallelism over BOTH axes and table-model-parallelism over
-    ``ici_axis`` only (the all-to-all embedding exchange must stay on ICI,
-    SURVEY.md §2.4 mapping).
+    Built with ``mesh_utils.create_hybrid_device_mesh`` with the process as
+    the granule, so each row of the mesh is one host's cards — collectives
+    along ``ici_axis`` stay on NVLink, and only the (rare) cross-host
+    traffic touches the network.  The DLRM hybrid maps batch
+    data-parallelism over BOTH axes and table-model-parallelism over
+    ``ici_axis`` only (the all-to-all embedding exchange stays inside a
+    host, SURVEY.md §2.4 mapping).
     """
     from jax.experimental import mesh_utils
 
     devs = jax.devices()
-    # The DCN granule must match what create_hybrid_device_mesh groups by:
-    # the SLICE when devices expose slice_index (TPU pods — ICI spans all
-    # hosts within a slice, so a slice may hold devices of many processes),
-    # else the PROCESS (CPU mesh in tests, single-slice GPU).  Counting
-    # hosts here instead would break any pod whose slices span >1 host.
-    has_slice = hasattr(devs[0], "slice_index")
-    if has_slice:
-        n_granules = len({d.slice_index for d in devs})
-    else:
-        n_granules = max(len({d.process_index for d in devs}), 1)
+    # the granule is the PROCESS: one host's cards share the fast links
+    # (NVLink), and what joins processes is the slower network
+    n_granules = max(len({d.process_index for d in devs}), 1)
     per_granule = len(devs) // n_granules
     devices = mesh_utils.create_hybrid_device_mesh(
         mesh_shape=(per_granule,), dcn_mesh_shape=(n_granules,),
-        devices=devs, process_is_granule=not has_slice)
+        devices=devs, process_is_granule=True)
     return Mesh(devices.reshape(n_granules, per_granule),
                 (dcn_axis, ici_axis))
 
@@ -154,7 +151,7 @@ def make_hybrid_mesh(ici_axis: str = "d", dcn_axis: str = "h") -> Mesh:
 def make_mesh_2d(dcn: int, ici: int, dcn_axis: str = "h",
                  ici_axis: str = "d") -> Mesh:
     """Explicit (dcn, ici)-shaped 2-D mesh over the first dcn*ici devices.
-    For real pods prefer :func:`make_hybrid_mesh` (ICI-neighbor-aware device
+    For real clusters prefer :func:`make_hybrid_mesh` (host-aware device
     order); this builder serves virtual CPU meshes and tests where device
     order is synthetic anyway."""
     devs = jax.devices()

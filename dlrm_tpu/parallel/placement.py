@@ -2,9 +2,9 @@
 
 The reference parallelizes embedding work across tables within one node
 (SimpleParallelStrategy / PreallocationStrategy, SURVEY.md §2.2); the
-TPU-native analog is *model-parallel table sharding*: each device owns a
+multi-device analog is *model-parallel table sharding*: each device owns a
 subset of whole tables, chosen by greedy balanced bin-packing on row counts
-(rows ∝ HBM bytes ∝ lookup bandwidth).  This module computes the static
+(rows ∝ device-memory bytes ∝ lookup bandwidth).  This module computes the static
 placement plan; the collective lookup/update lives in
 ``parallel/embedding.py``.
 

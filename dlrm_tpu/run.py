@@ -2,7 +2,7 @@
 
 The reference configures experiments with Julia keyword args and an
 ``@setup`` macro (/root/reference/src/DLRM.jl:44-110, script.jl); SURVEY.md
-§5 calls for a real config + CLI system in the TPU build.  Subcommands:
+§5 calls for a real config + CLI system.  Subcommands:
 
   preprocess   Criteo text -> binarized + vocab-reindexed dataset
   train        train a DLRM (synthetic or Criteo data), checkpoints + eval
@@ -51,14 +51,12 @@ def _build_config(args) -> "DLRMConfig":
     if args.interaction:
         over["interaction_impl"] = args.interaction
     else:
-        # feature-size-keyed default (measured; config.auto_interaction_impl
-        # docstring).  TPU-gated: off-TPU the pallas kernel falls back to
-        # slow interpret mode, so CPU runs keep the compiled gram path.
         import jax
-        auto_impl = cfg.auto_interaction_impl(c.feature_size)
-        if (auto_impl != c.interaction_impl
-                and jax.default_backend() == "tpu"):
-            over["interaction_impl"] = auto_impl
+        sharded = getattr(args, "sharded", None)
+        one_device = (not sharded if sharded is not None
+                      else len(jax.devices()) == 1)
+        over["interaction_impl"] = cfg.default_interaction_impl(
+            c, jax.default_backend(), one_device)
     if args.n_hot is not None:
         over["n_hot"] = args.n_hot
     if args.bf16:
@@ -100,16 +98,18 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--feature-size", type=int, default=16,
                    help="embedding dim (kaggle/terabyte presets)")
     p.add_argument("--interaction", default=None,
-                   choices=["gram", "pairwise", "pallas"],
-                   help="interaction impl (a typo would otherwise fall "
-                   "through to the forward pass's gram default silently)")
+                   choices=["gram", "pairwise", "fused"],
+                   help="interaction impl (default: the fused GPU kernel "
+                   "on one GPU, gram elsewhere; config."
+                   "default_interaction_impl)")
     p.add_argument("--n-hot", type=int, default=None,
                    help="multi-hot lookups per table (default preset)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute dtype for MLPs/interaction")
     p.add_argument("--bf16-tables", action="store_true",
                    help="bfloat16 embedding-table storage (halves table "
-                   "HBM; the reference's BF16-embeddings experiment)")
+                   "device memory; the reference's BF16-embeddings "
+                   "experiment)")
     p.add_argument("--pad-to", type=int, default=None,
                    help="pad interaction output width to a multiple")
     p.add_argument("--table-sizes", default=None,
@@ -124,17 +124,17 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    "deliberately does not check)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize the dense tower on backward "
-                   "(jax.checkpoint): trade FLOPs for activation HBM at "
-                   "big batches / feature sizes")
+                   "(jax.checkpoint): trade FLOPs for activation memory "
+                   "at big batches / feature sizes")
     p.add_argument("--exchange-dtype", default=None,
                    choices=["f32", "bf16"],
                    help="wire dtype for the sharded embedding exchanges "
-                   "(slot/cs all-to-all, rs reduce-scatter, DCN gradient "
-                   "fold); bf16 halves the per-step ICI/DCN collective "
+                   "(slot/cs all-to-all, rs reduce-scatter, cross-host "
+                   "gradient fold); bf16 halves the per-step collective "
                    "bytes at one rounding per exchange")
     p.add_argument("--platform", default=None,
                    help="force the jax platform (e.g. cpu for a virtual "
-                   "device mesh while a TPU is attached)")
+                   "device mesh while a GPU is attached)")
 
 
 def _strict_bool(s: str) -> bool:
@@ -147,9 +147,8 @@ def _strict_bool(s: str) -> bool:
 
 
 def _apply_platform(args) -> None:
-    """--platform: force the jax backend BEFORE any device use.  The env
-    var route (JAX_PLATFORMS) can lose to an eagerly-registered platform
-    plugin; jax.config.update always wins."""
+    """--platform: force the jax backend BEFORE any device use
+    (jax.config.update wins over whatever JAX_PLATFORMS said)."""
     if getattr(args, "platform", None):
         import jax
         jax.config.update("jax_platforms", args.platform)
@@ -157,11 +156,11 @@ def _apply_platform(args) -> None:
 
 def _add_dist_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host: jax.distributed.initialize before "
-                   "device use (TPU pods auto-discover the topology; one "
-                   "launch of this command per host)")
+                   help="multi-process: jax.distributed.initialize before "
+                   "device use (one launch of this command per process; "
+                   "pass --coordinator, --num-processes and --process-id)")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator host:port (omit on TPU pods)")
+                   help="coordinator host:port (process 0's address)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
 
@@ -249,10 +248,9 @@ def _data_iter(args, config, *, steps: Optional[int], seed: int = 0,
 
 
 def _maybe_init_distributed(args) -> bool:
-    """--distributed: bring up multi-host JAX BEFORE any device use.  On
-    TPU pods `jax.distributed.initialize()` auto-discovers the topology;
-    --coordinator/--num-processes/--process-id cover manual bring-up (and
-    the CPU-backend integration tests).  Returns True when this run spans
+    """--distributed: bring up multi-process JAX BEFORE any device use,
+    from --coordinator/--num-processes/--process-id (a GPU cluster has no
+    topology to auto-discover).  Returns True when this run spans
     multiple processes."""
     if not getattr(args, "distributed", False):
         return False
@@ -317,6 +315,7 @@ def _train_plan(args, n_dev: int, multiproc: bool):
         raise SystemExit("--grad-clip-norm supports the per-step and "
                          "block paths only; drop --hbm-budget-gb")
     sharded = args.sharded if args.sharded is not None else (n_dev > 1)
+    _check_host_tier(args)
     if args.hbm_budget_gb is not None and sharded:
         # the two-tier layout is an elif of the sharded one — silently
         # ignoring the budget (and stamping two_tier=true into
@@ -387,6 +386,26 @@ def _train_plan(args, n_dev: int, multiproc: bool):
     return argparse.Namespace(
         lr=lr, block=block, clip=clip, sharded=sharded, dcn_n=dcn_n,
         ici_n=ici_n, n_shards=(ici_n if ici_n else n_dev))
+
+
+def _check_host_tier(args) -> None:
+    """Refuse the host-tier flags where the backend cannot run the tier:
+    its gather and scatter are compute_on("device_host") regions
+    (parallel/host_tier.py), which only some XLA backends lower."""
+    flags = [f for f, on in (
+        ("--hbm-budget-gb", args.hbm_budget_gb is not None),
+        ("--host-tables", bool(getattr(args, "host_tables", None))))
+        if on]
+    if not flags:
+        return
+    from dlrm_tpu.utils.backend import host_compute_supported
+    if not host_compute_supported():
+        import jax
+        raise SystemExit(
+            f"{' and '.join(flags)}: the host tier runs its gather and "
+            "scatter in compute_on('device_host') regions, which XLA does "
+            f"not lower on this backend ({jax.devices()[0].platform}); "
+            "keep the tables on the device (drop the flag)")
 
 
 def _resume(mgr, say, template, shardings=None, place=None):
@@ -1053,9 +1072,9 @@ def _try_load_quantized_sharded_ctx(args, config):
     """int8 SHARDED serving: restore the sharded checkpoint host-side
     (numpy), quantize the shard stacks in host RAM, and ship only
     int8 + scales to the mesh — the full-precision stack never touches
-    HBM.  This is the Terabyte-scale serving path: fs=128 tables are
-    ~451 GB f32 / ~225 GB bf16 (over an 8-chip v5e slice's 128 GB HBM)
-    vs ~113 GB int8.  Single-process (the host-side restore holds one
+    device memory.  This is the Terabyte-scale serving path: fs=128
+    tables are ~451 GB f32 / ~225 GB bf16 (more than four 80 GB cards
+    hold) vs ~113 GB int8.  Single-process (the host-side restore holds one
     full-precision copy in host RAM); the pinned-host stack (if any)
     stays full-precision — it occupies host RAM, not HBM.
     Returns (params, mesh, placement) or None to fall back."""
@@ -1420,8 +1439,7 @@ def cmd_export(args) -> int:
     import os
 
     # like every other subcommand: --platform must be applied BEFORE
-    # _build_config initializes the backend (its fs>=128 auto-interaction
-    # decision probes jax.default_backend())
+    # anything initializes the backend
     _apply_platform(args)
     config = _build_config(args)
     if getattr(args, "quantize", None) == "int8":
@@ -1599,8 +1617,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "consecutive steps into one scatter (sgd) or one "
                     "dedup-then-apply (adagrad) per chunk per block "
                     "(bounded staleness < K steps, the reference's "
-                    "BatchUpdater relaxation; measured +39%% sgd "
-                    "throughput at K=8 on v5e)")
+                    "BatchUpdater relaxation)")
     tr.add_argument("--adagrad-impl", default="hybrid",
                     help="exact-adagrad embedding update implementation "
                     "(single-chip): hybrid (default; per-chunk selection "
@@ -1636,10 +1653,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "checksum + tiny DCN all-gather); aborts on "
                     "divergence")
     tr.add_argument("--mesh-shape", default=None,
-                    help="DCNxICI hybrid mesh, e.g. 2x4: tables shard over "
-                    "the ICI axis only (all-to-all stays on-slice), batch "
+                    help="DCNxICI hybrid mesh, e.g. 2x4 = hosts x cards "
+                    "per host: tables shard over the intra-host (ICI) "
+                    "axis only (the all-to-all stays inside a host), batch "
                     "data-parallelism spans both axes; sparse updates are "
-                    "all-gathered over DCN compressed (multi-host scaling)")
+                    "all-gathered across hosts (DCN) compressed")
     tr.add_argument("--max-rows-per-shard", type=int, default=None,
                     help="row-shard tables bigger than this across the "
                     "mesh (for tables larger than one device's HBM)")
@@ -1717,7 +1735,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from dlrm_tpu.utils.backend import setup_compile_cache
+
     args = build_parser().parse_args(argv)
+    setup_compile_cache()
     return args.fn(args)
 
 

@@ -201,6 +201,9 @@ def make_sharded_eval_forward(config, mesh, placement, axis: str = "d"):
     would recompile the whole mesh program every time."""
     from dlrm_tpu.models.dlrm import forward_from_pooled
     from dlrm_tpu.parallel import embedding as pemb
+    from dlrm_tpu.train.train import check_mesh_interaction
+
+    check_mesh_interaction(config)
 
     @jax.jit
     def fwd(dp, emb, emb_h, cs, scales, cs_scales, dense, sparse):

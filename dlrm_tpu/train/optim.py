@@ -85,8 +85,8 @@ def clip_by_global_norm(max_norm, grads):
     directly bounds the step (hot-lr runs that blow into the BCE clamp
     train normally with a tight clip).  Adagrad-family sparse steps are
     g*rsqrt(acc(g^2)) — INVARIANT to gradient scale — so clipping does
-    not substitute for lr choice there (the fs=128 saturation fix
-    remains lr, ROUND4_NOTES); it still bounds the dense towers and
+    not substitute for lr choice there (at fs=128 lr=0.05 saturates the
+    interaction inputs and lr=0.002 trains); it still bounds the dense towers and
     one-off outlier batches once accumulators are warm.  Returns
     (clipped_grads, global_norm)."""
     leaves = jax.tree.leaves(grads)
@@ -225,10 +225,8 @@ def apply_adagrad_dense_g(emb, state: EmbAdagradState, ids: jax.Array,
     unchanged, so the result is bit-equivalent to
     :func:`apply_adagrad_chunked` without its argsort, accumulator gather,
     or second scatter.  Cost: ONE scatter (same as SGD) + ~5 chunk-sized
-    HBM passes + a chunk-sized f32 transient — which AMORTIZES over a
-    K-step block while the argsort grows with K*B.  Measured (v5e, Kaggle
-    fs=16 B=32k, K=8): 24.4 ms/step vs 46.0 for the sort-based block and
-    54.9 for the exact per-step Adagrad.
+    memory passes + a chunk-sized f32 transient — which AMORTIZES over a
+    K-step block while the argsort grows with K*B.
 
     ``d_rows_scaled``: see :func:`apply_adagrad_chunked` (per-micro-step
     lr schedules); adds a second dense buffer.
@@ -292,8 +290,7 @@ def apply_adagrad_hybrid(emb, state: EmbAdagradState, ids: jax.Array,
                          rowwise: bool = False):
     """Exact sparse Adagrad with PER-CHUNK implementation selection.
 
-    The two exact implementations have complementary cost shapes
-    (measured, PERFORMANCE.md):
+    The two exact implementations have complementary cost shapes:
       * dedup (:func:`apply_adagrad_chunked`): argsort over the chunk's
         ids + accumulator gather + 2 scatters — cost scales with the
         chunk's ID COUNT, independent of chunk size.  Right for the deep
@@ -305,14 +302,11 @@ def apply_adagrad_hybrid(emb, state: EmbAdagradState, ids: jax.Array,
         dedup argsort is most expensive and full passes are ~free).
     This selects per chunk by ``dense_g_max_bytes`` and runs both.  Both
     are exact (dedup-then-apply semantics), so the split is purely a
-    performance choice; results are independent of the threshold.
-
-    Measured (v5e, Kaggle fs=16 B=32768, exact K=1 step): dedup-only
-    55.3 ms, dense-G-only 50.7 ms, hybrid sweep 20/150/400/550 MB ->
-    49.4/46.9/46.8/47.9 ms — the 400 MB default (dense-G for every chunk
-    except the three biggest) is the sweep optimum, +18%% over dedup-only
-    (0.59 -> 0.70 M ex/s).  First compile also drops ~25x (426 s -> 17 s:
-    the per-chunk argsorts dominate XLA compile time)."""
+    performance choice; results are independent of the threshold.  The
+    400 MB default (dense-G for every chunk except the three biggest of
+    Kaggle fs=16) was tuned on the previous accelerator and is not yet
+    measured on the GPU; dense-G chunks also compile much faster (the
+    per-chunk argsorts dominate XLA compile time)."""
     if tables is None:
         tables = tuple(range(config.num_tables))
     dg_tabs, dd_tabs = split_tables_by_chunk_bytes(config, tables,

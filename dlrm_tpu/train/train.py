@@ -2,7 +2,7 @@
 
 The reference's training loop (/root/reference/src/train/train.jl:189-293)
 is: Zygote pullback → gather grads → work-stealing dense SGD update →
-multithreaded compressed sparse embedding update.  The TPU-native shape of
+multithreaded compressed sparse embedding update.  The JAX shape of
 all of that is ONE jitted train step — forward, backward, dense update, and
 sparse scatter-add update fused into a single XLA program with donated
 parameter buffers — plus a host-side loop that feeds device-resident batches.
@@ -26,6 +26,7 @@ from dlrm_tpu.config import DLRMConfig
 from dlrm_tpu.models import dlrm as model_lib
 from dlrm_tpu.ops import embedding as emb_ops
 from dlrm_tpu.ops.loss import bce_loss
+from dlrm_tpu.utils.backend import can_pin_host_outputs
 
 
 class TrainState(NamedTuple):
@@ -51,11 +52,10 @@ def train_step(params: dict, dense: jax.Array, sparse: jax.Array,
 
     Mixed embedding strategy (ops/embedding.partition_tables): big tables go
     through the gather-outside-grad split so their gradients stay compressed
-    (ids, rows) and apply as one scatter-add; small tables go through the
-    one-hot MXU matmul whose gradient is a small DENSE (R, D) slice applied
-    with a contiguous vectorized add — no scatter at all.  On TPU v5e this
-    removes the ~105 ns/row XLA scatter cost for every table below the
-    threshold (the majority of Criteo lookups).
+    (ids, rows) and apply as one scatter-add; small tables are looked up
+    inside the differentiated function (ops/embedding.small_table_lookup)
+    so their gradient is a small DENSE (R, D) slice applied with a
+    contiguous vectorized add — no scatter into the table at all.
 
     Jit with ``static_argnames=('config', 'lr')`` and donate ``params``.
     """
@@ -63,7 +63,7 @@ def train_step(params: dict, dense: jax.Array, sparse: jax.Array,
                                           config.small_table_threshold)
     dense_params, emb = model_lib.split_params(params)
     emb_ops.check_storage(emb, config)
-    onehot_dtype = config.compute_dtype
+    small_dtype = config.compute_dtype
 
     def table_ids(t):
         return sparse[:, t] if sparse.ndim == 2 else sparse[:, t, :]
@@ -87,10 +87,10 @@ def train_step(params: dict, dense: jax.Array, sparse: jax.Array,
 
     def inner(dp, rows_big, small_tables):
         parts = [emb_ops.pool(rows_big)]
-        with jax.named_scope("lookup_onehot"):
+        with jax.named_scope("lookup_small"):
             for k, t in enumerate(small):
-                parts.append(emb_ops.onehot_lookup(
-                    small_tables[k], table_ids(t), onehot_dtype)[:, None, :])
+                parts.append(emb_ops.small_table_lookup(
+                    small_tables[k], table_ids(t), small_dtype)[:, None, :])
         pooled = jnp.concatenate(parts, axis=1).astype(emb_dtype)
         pooled = pooled[:, emb_ops.table_order_permutation(small, big), :]
         return _loss_from_pooled(dp, pooled, dense, labels, config)
@@ -146,7 +146,13 @@ def make_jit_train_step(config: DLRMConfig, lr) -> Callable:
                                               lr=lr_val),
         donate_argnums=(0,))
     if not callable(lr):
-        return lambda p, d, s, l: jitted(p, d, s, l, jnp.float32(lr))
+        def step(p, d, s, l):
+            return jitted(p, d, s, l, jnp.float32(lr))
+
+        # the compiled program behind the step, for lower()/compile()
+        step.lower = lambda p, d, s, l: jitted.lower(p, d, s, l,
+                                                     jnp.float32(lr))
+        return step
 
     def run(p, d, s, l):
         lr_val = jnp.float32(lr(run.step))
@@ -213,9 +219,9 @@ def train_step_opt(params: dict, opt_state: dict, dense, sparse, labels, *,
 
     def inner(dp, rows_big, small_tables):
         parts = [emb_ops.pool(rows_big)]
-        with jax.named_scope("lookup_onehot"):
+        with jax.named_scope("lookup_small"):
             for k, t in enumerate(small):
-                parts.append(emb_ops.onehot_lookup(
+                parts.append(emb_ops.small_table_lookup(
                     small_tables[k], table_ids(t),
                     config.compute_dtype)[:, None, :])
         pooled = jnp.concatenate(parts, axis=1).astype(emb_dtype)
@@ -360,17 +366,17 @@ def train_block(params: dict, dense: jax.Array, sparse: jax.Array,
     big-table scatter updates COALESCED into one scatter-add per storage
     chunk at block end.
 
-    This is the TPU-native analog of the reference's disabled BatchUpdater
+    This is the JAX analog of the reference's disabled BatchUpdater
     pipeline (src/model/embedding_update.jl:1-37): there, precompute threads
     aggregate sparse updates in DRAM and writeback threads trickle them into
     the (slow-tier) tables behind the forward pass, deliberately tolerating
     bounded staleness.  Here the same relaxation — the forward of micro-step
     k reads big-table rows as of block entry (stale by < ``block`` steps) —
-    buys amortization of the measured ~2.4 ms fixed cost per XLA TPU scatter
-    op (ops/embedding.py rationale) across ``block`` batches.
+    buys amortization of the fixed cost of each scatter op across
+    ``block`` batches.
 
     Exactness contract:
-      * dense params and small (one-hot-path) tables update every micro-step
+      * dense params and small (dense-gradient) tables update every micro-step
         — they are carried, never stale;
       * big-table gradients are computed w.r.t. the stale rows and their
         scatter-adds commute, so when no id repeats across micro-batches the
@@ -411,10 +417,10 @@ def train_block(params: dict, dense: jax.Array, sparse: jax.Array,
 
         def inner(dp_, rows_big_, st_, s=s, d=d, l=l):
             parts = [emb_ops.pool(rows_big_)]
-            with jax.named_scope("lookup_onehot"):
+            with jax.named_scope("lookup_small"):
                 for j, t in enumerate(small):
                     idt = s[:, t] if s.ndim == 2 else s[:, t, :]
-                    parts.append(emb_ops.onehot_lookup(
+                    parts.append(emb_ops.small_table_lookup(
                         st_[j], idt, config.compute_dtype)[:, None, :])
             pooled = jnp.concatenate(parts, axis=1).astype(emb_dtype)
             pooled = pooled[:, emb_ops.table_order_permutation(small, big),
@@ -509,7 +515,7 @@ def train_block_opt(params: dict, opt_state: dict, dense: jax.Array,
     w.r.t. block-entry rows, accumulated compressed, and applied at block
     end with ONE dedup-then-apply Adagrad per chunk — one argsort + one
     accumulator gather + two scatters per chunk per K steps instead of
-    per step (the dominant Adagrad overhead, PERFORMANCE.md).  When no id
+    per step (the dominant Adagrad overhead).  When no id
     repeats across micro-batches the block equals K sequential
     :func:`train_step_opt` calls up to mul-reorder ulps; otherwise a
     repeated row gets one accumulator update with the SUMMED gradient
@@ -568,10 +574,10 @@ def train_block_opt(params: dict, opt_state: dict, dense: jax.Array,
 
         def inner(dp_, rows_big_, st_tabs):
             parts = [emb_ops.pool(rows_big_)]
-            with jax.named_scope("lookup_onehot"):
+            with jax.named_scope("lookup_small"):
                 for j, t in enumerate(small):
                     idt = s[:, t] if s.ndim == 2 else s[:, t, :]
-                    parts.append(emb_ops.onehot_lookup(
+                    parts.append(emb_ops.small_table_lookup(
                         st_tabs[j], idt, config.compute_dtype)[:, None, :])
             pooled = jnp.concatenate(parts, axis=1).astype(emb_dtype)
             pooled = pooled[:, emb_ops.table_order_permutation(small, big),
@@ -922,9 +928,19 @@ def sharded_opt_shardings(opt_state: dict, mesh, axis: str = "d"):
     return sh
 
 
+def check_mesh_interaction(config: DLRMConfig) -> None:
+    """The fused interaction kernel is one device's program: under a mesh
+    it would see the global batch.  The sharded paths refuse it."""
+    if config.interaction_impl == "fused":
+        raise ValueError(
+            "interaction_impl='fused' runs on one device's batch; the "
+            "sharded path takes 'gram' or 'pairwise'")
+
+
 def make_sharded_train_step_opt(config: DLRMConfig, *, optimizer: str,
                                 lr, mesh, placement, axis: str = "d",
                                 grad_clip_norm=None) -> Callable:
+    check_mesh_interaction(config)
     step = functools.partial(sharded_train_step_opt, config=config,
                              optimizer=optimizer, lr=lr, mesh=mesh,
                              placement=placement, axis=axis,
@@ -934,9 +950,10 @@ def make_sharded_train_step_opt(config: DLRMConfig, *, optimizer: str,
     from jax.sharding import NamedSharding, PartitionSpec as P
     from dlrm_tpu.parallel.host_tier import ensure_backend_primed
     ensure_backend_primed()
-    if jax.devices()[0].platform != "tpu":
-        # CPU backend cannot pin outputs; skip donation so pinned-host
-        # inputs are not reused for default-memory outputs
+    if not can_pin_host_outputs():
+        # no output placement in pinned_host (the CPU backend): skip
+        # donation so pinned-host inputs are not reused for
+        # default-memory outputs
         return jax.jit(step)
     pin = NamedSharding(mesh, P(axis), memory_kind="pinned_host")
     out_params = {"bottom": None, "emb": None, "top": None, "emb_h": pin}
@@ -1026,14 +1043,16 @@ def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
                              block: int = None, axis: str = "d",
                              grad_clip_norm=None) -> Callable:
     del block  # derived from the batch's leading dim at trace time
+    check_mesh_interaction(config)
     jit_kw = dict(donate_argnums=(0,))
     if placement.host_row_sharded:
         from jax.sharding import NamedSharding, PartitionSpec as P
         from dlrm_tpu.parallel.host_tier import ensure_backend_primed
         ensure_backend_primed()
-        if jax.devices()[0].platform != "tpu":
-            # CPU backend cannot pin outputs; skip donation so pinned-host
-            # inputs are not reused for default-memory outputs
+        if not can_pin_host_outputs():
+            # no output placement in pinned_host (the CPU backend): skip
+            # donation so pinned-host inputs are not reused for
+            # default-memory outputs
             jit_kw = {}
         else:
             out_params = {"bottom": None, "emb": None, "top": None,
@@ -1184,6 +1203,7 @@ def make_sharded_train_block_opt(config: DLRMConfig, *, optimizer: str,
                                  unroll: bool = True,
                                  grad_clip_norm=None) -> Callable:
     del block  # derived from the batch's leading dim at trace time
+    check_mesh_interaction(config)
     assert optimizer in ("adagrad", "rowwise_adagrad"), \
         "SGD blocks use make_sharded_train_block"
     step = functools.partial(sharded_train_block_opt, config=config, lr=lr,
@@ -1195,9 +1215,10 @@ def make_sharded_train_block_opt(config: DLRMConfig, *, optimizer: str,
     from jax.sharding import NamedSharding, PartitionSpec as P
     from dlrm_tpu.parallel.host_tier import ensure_backend_primed
     ensure_backend_primed()
-    if jax.devices()[0].platform != "tpu":
-        # CPU backend cannot pin outputs; skip donation so pinned-host
-        # inputs are not reused for default-memory outputs
+    if not can_pin_host_outputs():
+        # no output placement in pinned_host (the CPU backend): skip
+        # donation so pinned-host inputs are not reused for
+        # default-memory outputs
         return jax.jit(step)
     pin = NamedSharding(mesh, P(axis), memory_kind="pinned_host")
     out_params = {"bottom": None, "emb": None, "top": None, "emb_h": pin}
@@ -1213,6 +1234,8 @@ def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
                             axis: str = "d") -> Callable:
     """Jitted hybrid train step with explicit in/out shardings."""
     from dlrm_tpu.parallel.mesh import batch_sharding, param_shardings
+
+    check_mesh_interaction(config)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     step = functools.partial(sharded_train_step, config=config, lr=lr,
@@ -1227,7 +1250,7 @@ def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
         ensure_backend_primed()
     if not placement.host_row_sharded:
         jitted = jax.jit(step, donate_argnums=(0,))
-    elif jax.devices()[0].platform == "tpu":
+    elif can_pin_host_outputs():
         # pin the host stack's OUTPUT back to pinned_host so it never
         # round-trips through HBM between steps (donated in, pinned out)
         out_params = {
@@ -1240,8 +1263,8 @@ def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
         jitted = jax.jit(step, donate_argnums=(0,),
                          out_shardings=(out_params, None))
     else:
-        # CPU backend cannot annotate output placement (see
-        # parallel/host_tier.make_tiered_train_step); skip donation so the
+        # no output placement in pinned_host (the CPU backend, see
+        # utils/backend.can_pin_host_outputs); skip donation so the
         # pinned-host input is not reused for a default-memory output
         jitted = jax.jit(step)
 

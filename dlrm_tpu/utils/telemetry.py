@@ -82,17 +82,17 @@ class InstrumentedTrainer:
     tables; two DOCUMENTED deviations keep the phases clean: (1) the
     :lookup/:embedding_update phases use the plain full-gather/scatter
     strategy for ALL tables (the production step routes tables under
-    ``small_table_threshold`` through the one-hot MXU path instead), and
-    (2) under ``compute_dtype=bfloat16`` the full-gather lookup skips the
-    one-hot path's table cast, so bf16 runs are phase-representative, not
-    bit-identical.  For exact production numbers use train.train_step;
+    ``small_table_threshold`` through the dense-gradient small-table path
+    instead), and (2) under ``compute_dtype=bfloat16`` the full-gather
+    lookup skips the small-table path's cast, so bf16 runs are
+    phase-representative, not bit-identical.  For exact production numbers use train.train_step;
     for zero-cost production profiling use the named_scope trace().
 
-    Timing caveat: each phase is timed by ONE ``block_until_ready`` +
-    ``perf_counter`` — fine on local devices; over a network-tunneled
-    device the per-phase sync costs an RTT, so treat absolute phase ms
-    there as upper bounds (bench.py's slope method is the throughput
-    ground truth).
+    Timing caveat: each phase is its own jitted program timed by ONE
+    ``block_until_ready`` + ``perf_counter``, so phases cannot overlap
+    or fuse as they do inside the one-program step: treat phase ms as
+    upper bounds (bench.py's step windows are the throughput ground
+    truth).
     """
 
     def __init__(self, config: DLRMConfig, lr: float):
@@ -119,8 +119,8 @@ class InstrumentedTrainer:
             return mlp_apply(bp, dense, final="relu", compute_dtype=cd)
 
         def inter_f(x, y):
-            if config.interaction_impl == "pallas":
-                from dlrm_tpu.ops.interaction_pallas import \
+            if config.interaction_impl == "fused":
+                from dlrm_tpu.ops.interaction_triton import \
                     fused_dot_interaction
                 return fused_dot_interaction(x, y.astype(x.dtype),
                                              config.interaction_pad_to)

@@ -45,8 +45,8 @@ def validate(path: str, learning_rate: float = 10.0, atol: float = 1e-4,
 
     Numerics are pinned to full-precision matmuls for the duration — parity
     against the PyTorch float32 dump must not depend on the ambient
-    ``jax_default_matmul_precision`` (TPU defaults trade precision for
-    speed; this harness is the one place that must not).
+    ``jax_default_matmul_precision`` (the GPU's default runs float32
+    products in TF32; this harness is the one place that must not).
     """
     with jax.default_matmul_precision("highest"):
         return _validate(path, learning_rate, atol, rtol)

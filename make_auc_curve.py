@@ -4,22 +4,20 @@ The Criteo north star (BASELINE.json: AUC 0.8025 on real Terabyte data)
 is unreachable in this zero-egress environment, so the stand-in is the
 Kaggle-scale skewed synthetic with a planted Zipf CTR ground truth
 (data/synthetic.ClickthroughModel — same generator the CLI's
-``--synthetic skewed`` uses, seed 12345).  This script produces the
-committed curve artifacts:
+``--synthetic skewed`` uses, seed 12345).  This script writes one curve
+per feature size (``AUC_CURVE_fs<fs>.json`` by default):
 
-* ``AUC_CURVE.json``        — fs=16 (round 2; regenerate with
-  ``--feature-size 16``)
-* ``AUC_CURVE_fs128.json``  — fs=128, the MLPerf/Terabyte shape
-  (criteo.jl:379-406): bf16 tables (f32 would not fit one v5e), rowwise
-  adagrad (the only Adagrad whose accumulator fits), lr per the round-4
-  saturation note (adagrad first steps are sign-updates of magnitude lr
-  per element; lr=0.05 saturates the fs=128 interaction inputs while
-  lr=0.002 trains — ROUND4_NOTES).
+* fs=16 (``--feature-size 16``): adagrad, lr 0.005;
+* fs=128, the MLPerf/Terabyte shape (criteo.jl:379-406): f32 tables
+  (17.3 GB, which one 80 GB card holds), rowwise adagrad, lr 0.002
+  (adagrad first steps are sign-updates of magnitude lr per element;
+  lr=0.05 saturates the fs=128 interaction inputs while lr=0.002
+  trains).
 
 Each curve row records wall-clock seconds (including compile), examples
 consumed, and held-out accuracy / AUC / loss.
 
-Run on the chip:
+Run on the GPU (``--tiny`` runs a tiny config anywhere):
     python make_auc_curve.py --feature-size 128 --steps 600 \
         --eval-every 50 --out AUC_CURVE_fs128.json
 """
@@ -52,8 +50,10 @@ def main():
                     help="tiny config (CPU smoke of the script itself)")
     args = ap.parse_args()
 
-    from bench_util import init_devices
-    init_devices("auc_curve", timeout_s=300.0)
+    from dlrm_tpu.utils import backend
+    if not args.tiny:
+        backend.require_gpu("make_auc_curve.py (use --tiny off the GPU)")
+    backend.setup_compile_cache()
     import jax
     import jax.numpy as jnp
     import dlrm_tpu
@@ -67,8 +67,6 @@ def main():
     lr = args.lr if args.lr is not None else (0.002 if fs >= 128 else 0.005)
     out_path = args.out or f"AUC_CURVE_fs{fs}.json"
     kw = {}
-    if fs >= 128:
-        kw["embedding_dtype"] = jnp.bfloat16  # f32 tables: 17.3 GB > HBM
     if args.tiny:
         import dataclasses
         config = dataclasses.replace(

@@ -2,7 +2,7 @@
 //
 // The reference's data plane is CPU-native for speed (SIMD gather kernels in
 // EmbeddingTables.jl, mmap'd records, Polyester-threaded marshaling —
-// SURVEY.md §2.2/§2.3).  On TPU the *device* side of that is XLA's job, but
+// SURVEY.md §2.2/§2.3).  On the GPU the *device* side of that is XLA's job, but
 // the host-side preprocessing (parsing a terabyte of tab-separated text) is
 // still CPU-bound and far too slow in Python — this is its C++ equivalent.
 //

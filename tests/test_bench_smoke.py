@@ -1,11 +1,10 @@
 """Drive bench.py's full section sequence on CPU (--smoke).
 
-Round 4's driver bench died mid-run on a section-sequencing bug (the
-eval probe called forward() on params packed under a different chunk
-geometry) that no test exercised — the bench script's SECTION SEQUENCE
-is itself a correctness surface.  This test runs every section on tiny
-shapes and asserts the final JSON line prints with every section's
-fragment present and no ``*_error`` keys.
+The bench script's SECTION SEQUENCE is itself a correctness surface (a
+section that reuses another's params under a different chunk geometry
+crashes only there).  This test runs every section on tiny shapes and
+asserts the final JSON line prints with every section's fragment present
+and no ``*_error`` keys.
 """
 
 import json
@@ -31,13 +30,13 @@ def test_bench_smoke_sequence_end_to_end():
     assert not errors, errors
     # every section's fragment must be present (block/K keys use the
     # smoke block size K=2)
-    for key in ("value", "block2_examples_per_s", "adagrad_examples_per_s",
+    for key in ("value", "fs16_sgd_examples_per_s", "block2_examples_per_s",
+                "adagrad_examples_per_s",
                 "adagrad_block2_examples_per_s", "lookup_gb_s_logical",
                 "b2048_examples_per_s", "eval_examples_per_s",
                 "hosttier_b128_examples_per_s",
                 "hosttier_block2_b128_examples_per_s",
                 "fs128_sgd_gram_examples_per_s",
-                "fs128_sgd_pallas_examples_per_s",
                 "fs128_rowwise_adagrad_examples_per_s",
                 "fs128_lookup_gb_s_logical",
                 "fs128_sgd_block2_examples_per_s",
@@ -47,37 +46,60 @@ def test_bench_smoke_sequence_end_to_end():
         assert out[key] > 0, (key, out[key])
 
 
-def test_slope_time_rejects_negative_slopes():
-    """The guard that keeps a noise-dominated slope from printing a
-    negative throughput (round-4 driver log: '-0.25 ms/step')."""
+def _bench():
     sys.path.insert(0, REPO)
     try:
-        from bench import slope_time
+        import bench
     finally:
         sys.path.remove(REPO)
+    return bench
 
-    # windows whose measured totals DECREASE with n: slope is negative,
-    # the fallback (best whole-window mean) must be returned instead
-    times = {4: 1.0, 12: 0.6}
-    secs, fallback = slope_time(lambda n: times[n], iters=(4, 12),
-                                repeats=3)
-    assert fallback
-    assert secs == pytest.approx(0.6 / 12)
-    assert secs > 0
 
-    # a clean positive slope passes through untouched
-    times = {4: 0.9, 12: 2.5}
-    secs, fallback = slope_time(lambda n: times[n], iters=(4, 12),
-                                repeats=3)
-    assert not fallback
-    assert secs == pytest.approx((2.5 - 0.9) / 8)
+def test_time_window_ends_each_window_on_the_results(monkeypatch):
+    """Every timing window ends in jax.block_until_ready on what its steps
+    returned (JAX returns before the device finishes), and the median of
+    the per-window step times is the result."""
+    import jax
+
+    bench = _bench()
+    synced, clock = [], iter([0.0, 1.0, 1.0, 4.0, 4.0, 6.0])
+    monkeypatch.setattr(jax, "block_until_ready",
+                        lambda x: synced.append(x) or x)
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: next(clock))
+    secs, per = bench.time_window(lambda n: ("state", n), n=2, repeats=3)
+    assert synced == [("state", 2)] * 3
+    assert per == [0.5, 1.5, 1.0]
+    assert secs == 1.0
+
+
+def test_bench_refuses_the_cpu_without_smoke():
+    """Off the GPU the benchmark stops before any section: a CPU time must
+    never be reported as a device number."""
+    bench = _bench()
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        bench.run(smoke=False)
+
+
+def test_bench_exits_nonzero_on_a_section_error(monkeypatch, capsys):
+    bench = _bench()
+    import dlrm_tpu.utils.backend as backend
+
+    def boom(ctx, out):
+        raise RuntimeError("section broke")
+
+    monkeypatch.setattr(backend, "setup_compile_cache", lambda: None)
+    monkeypatch.setattr(bench, "SECTIONS", (("boom", boom),))
+    monkeypatch.setattr(sys, "argv", ["bench.py", "--smoke"])
+    assert bench.main() == 1
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["boom_error"] == "RuntimeError: section broke"
+    assert out["device"]["platform"] == "cpu" and out["smoke"] is True
 
 
 @pytest.mark.slow
 def test_auc_curve_script_tiny():
-    """make_auc_curve.py --tiny end-to-end on CPU: the committed curve
-    artifacts (AUC_CURVE.json / AUC_CURVE_fs128.json) must stay
-    reproducible by a tested script, not a one-off session."""
+    """make_auc_curve.py --tiny end-to-end on CPU: the AUC-curve script
+    must stay runnable, not a one-off session."""
     out = os.path.join(REPO, ".pytest_auc_tiny.json")
     try:
         env = dict(os.environ, JAX_PLATFORMS="cpu")

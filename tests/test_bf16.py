@@ -2,7 +2,7 @@
 
 The reference's @setup experiment runs BF16 embeddings on a BF16-capable
 CPU path (/root/reference/src/DLRM.jl:60-67, OneDNN.BFloat16 in
-src/cachedarrays.jl:6-19); on TPU bf16 is the native fast dtype.  Contract:
+src/cachedarrays.jl:6-19); on the GPU bf16 halves memory traffic.  Contract:
 the engine runs end-to-end with bf16 tables (storage halves, updates
 accumulate in f32 before the cast) and tracks the f32 model within bf16
 resolution.

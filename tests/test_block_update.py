@@ -3,7 +3,7 @@
 The reference's BatchUpdater (src/model/embedding_update.jl:1-37, disabled)
 aggregates sparse updates and trickles them into the tables behind the
 forward pass, tolerating bounded staleness.  train.train_block is the
-TPU-native equivalent; its exactness contract is oracle-tested here:
+JAX equivalent; its exactness contract is oracle-tested here:
 
 * block=1 is bit-identical to train_step;
 * when no big-table id repeats across micro-batches, a K-block is

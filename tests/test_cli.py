@@ -715,33 +715,90 @@ def test_terabyte_preset_cli_scaled_down(tmp_path, capsys):
 
 
 def test_auto_interaction_impl_keying(monkeypatch):
-    """The interaction default is feature-size-keyed (measured: pallas
-    wins end-to-end at fs=128, gram at fs=16 — config.auto_interaction_impl
-    docstring) and TPU-gated (off-TPU pallas falls back to interpret
-    mode); an explicit --interaction always wins."""
+    """The interaction default is keyed to what can run it: the fused GPU
+    kernel on one GPU at a shape it takes (config.default_interaction_impl),
+    gram elsewhere — on the CPU, under a mesh, at unsupported widths; an
+    explicit --interaction always wins."""
     import argparse
+    import dataclasses
     import jax
 
     from dlrm_tpu import config as cfg
     from dlrm_tpu.run import _build_config
 
-    assert cfg.auto_interaction_impl(16) == "gram"
-    assert cfg.auto_interaction_impl(128) == "pallas"
+    k16, k128 = cfg.kaggle_config(16), cfg.kaggle_config(128)
+    assert cfg.default_interaction_impl(k16, "gpu", True) == "fused"
+    assert cfg.default_interaction_impl(k128, "gpu", True) == "fused"
+    assert cfg.default_interaction_impl(k128, "gpu", False) == "gram"
+    assert cfg.default_interaction_impl(k128, "cpu", True) == "gram"
+    narrow = dataclasses.replace(k16, bottom_mlp_sizes=(13, 64, 8),
+                                 feature_size=8)
+    assert cfg.default_interaction_impl(narrow, "gpu", True) == "gram"
 
     base = dict(config="terabyte", feature_size=128, n_hot=None,
                 bf16=False, pad_to=None,
                 table_sizes=",".join(["64"] * 8), batch_size=32,
                 chunk_budget_mb=None)
-    # CPU backend (the test environment): auto keeps the compiled gram
+    # CPU backend (the test environment): the compiled gram
     c = _build_config(argparse.Namespace(**base, interaction=None))
     assert c.interaction_impl == "gram"
-    # TPU backend: fs=128 auto-selects pallas; fs=16 stays gram
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # GPU backend: 8 visible devices means the sharded path -> gram; one
+    # device (--sharded false) -> the fused kernel, at fs=128 and fs=16
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     c = _build_config(argparse.Namespace(**base, interaction=None))
-    assert c.interaction_impl == "pallas"
+    assert c.interaction_impl == "gram"
+    c = _build_config(argparse.Namespace(**base, interaction=None,
+                                         sharded=False))
+    assert c.interaction_impl == "fused"
     c = _build_config(argparse.Namespace(
-        **{**base, "feature_size": 16}, interaction=None))
-    assert c.interaction_impl == "gram"
+        **{**base, "feature_size": 16}, interaction=None, sharded=False))
+    assert c.interaction_impl == "fused"
     # explicit flag overrides the auto choice
-    c = _build_config(argparse.Namespace(**base, interaction="gram"))
+    c = _build_config(argparse.Namespace(**base, interaction="gram",
+                                         sharded=False))
     assert c.interaction_impl == "gram"
+
+
+def test_interaction_pallas_rejected(capsys):
+    """The old "pallas" kernel is gone: --interaction pallas is refused at
+    argument time, and a library config naming it fails at construction."""
+    from dlrm_tpu import config as cfg
+    from dlrm_tpu.run import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["train", "--config", "tiny", "--interaction", "pallas",
+              "--steps", "1"])
+    assert e.value.code == 2
+    assert "invalid choice: 'pallas'" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="interaction_impl 'pallas'"):
+        cfg.tiny_config().__class__(
+            bottom_mlp_sizes=(13, 8), top_mlp_sizes=(4, 1), feature_size=8,
+            table_sizes=(4, 4), interaction_impl="pallas")
+
+
+def test_sharded_path_refuses_fused_interaction():
+    """Under a mesh the kernel would see the global batch: every sharded
+    builder refuses interaction_impl='fused' up front."""
+    import dataclasses
+
+    from dlrm_tpu import config as cfg
+    from dlrm_tpu.parallel.mesh import make_mesh
+    from dlrm_tpu.parallel.placement import plan_placement
+    from dlrm_tpu.train import metrics, train
+
+    config = dataclasses.replace(cfg.tiny_config(feature_size=16),
+                                 interaction_impl="fused")
+    mesh = make_mesh(2)
+    placement = plan_placement(config.table_sizes, 2, pack=config.pack)
+    for build in (
+            lambda: train.make_sharded_train_step(config, 0.1, mesh,
+                                                  placement),
+            lambda: train.make_sharded_train_block(config, 0.1, mesh,
+                                                   placement),
+            lambda: train.make_sharded_train_step_opt(
+                config, optimizer="adagrad", lr=0.1, mesh=mesh,
+                placement=placement),
+            lambda: metrics.make_sharded_eval_forward(config, mesh,
+                                                      placement)):
+        with pytest.raises(ValueError, match="fused"):
+            build()

@@ -2,11 +2,11 @@
 
 The sharded embedding path's collectives (slot/cs all_to_all, rs
 psum_scatter/all_gather, DCN gradient fold) optionally ride the wire in
-bf16 — half the ICI/DCN bytes (SCALING.md: the fs=128 pooled a2a is the
+bf16 — half the collective bytes (SCALING.md: the fs=128 pooled a2a is the
 dominant per-step collective).  The numerics contract is crisp and these
 tests pin it bit-exactly:
 
-* forward (one-hot): compressed lookup == f32 lookup rounded ONCE to
+* forward (single-id): compressed lookup == f32 lookup rounded ONCE to
   bf16 (collectives only move data / add disjoint-support partials);
 * backward: compressed update == uncompressed update applied to the
   bf16-pre-rounded gradient (routing collectives only move data);

@@ -7,10 +7,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+from dlrm_tpu.ops import interaction_triton
 from dlrm_tpu.ops.interaction import (dot_interaction,
                                       dot_interaction_pairwise,
                                       stack_features, tril_flat_indices)
-from dlrm_tpu.ops.interaction_pallas import fused_dot_interaction
+
+
+def fused_interpret(x, feats, pad_to=1):
+    """The GPU kernel run by the Pallas interpreter (no card here)."""
+    return interaction_triton.fused_dot_interaction(x, feats, pad_to,
+                                                    interpret=True)
 
 
 def _oracle(x, feats, pad_to=1):
@@ -33,7 +39,6 @@ def _oracle(x, feats, pad_to=1):
 IMPLS = {
     "gram": dot_interaction,
     "pairwise": dot_interaction_pairwise,
-    "pallas": fused_dot_interaction,  # interpret mode on CPU
 }
 
 
@@ -111,39 +116,74 @@ def test_gram_grad_matches_finite_differences(rng):
         np.testing.assert_allclose(float(gx[i]), fd, atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("batch", [8, 24, 40])  # non-power-of-two batches
-def test_pallas_odd_batches(batch, rng):
-    x = rng.normal(size=(batch, 8)).astype(np.float32)
-    feats = rng.normal(size=(batch, 3, 8)).astype(np.float32)
-    got = fused_dot_interaction(jnp.asarray(x), jnp.asarray(feats), 1)
+# -- the fused GPU kernel (ops/interaction_triton.py), interpret mode ------
+# Its width must be a power of two >= 16, so it has its own shapes: the
+# Kaggle widths (26 tables, D=16 and D=128) and small odd cases.
+
+FUSED_SHAPES = [
+    (4, 26, 16, 1),    # Kaggle fs=16: F=27, D=16
+    (2, 26, 128, 1),   # Kaggle fs=128: F=27, D=128
+    (5, 3, 16, 1),
+    (3, 7, 32, 64),    # padded output width
+]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_forward_matches_oracle(shape, rng):
+    b, t, d, pad_to = shape
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    feats = rng.normal(size=(b, t, d)).astype(np.float32)
+    got = fused_interpret(jnp.asarray(x), jnp.asarray(feats), pad_to)
+    np.testing.assert_allclose(np.asarray(got), _oracle(x, feats, pad_to),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_backward_matches_gram(shape, rng):
+    b, t, d, pad_to = shape
+    x = jnp.asarray(rng.normal(size=(b, d)).astype(np.float32))
+    feats = jnp.asarray(rng.normal(size=(b, t, d)).astype(np.float32))
+    cot = jnp.asarray(rng.normal(
+        size=dot_interaction(x, feats, pad_to).shape).astype(np.float32))
+
+    def vjp(fn):
+        return jax.vjp(lambda a, f: fn(a, f, pad_to), x, feats)[1](cot)
+
+    for got, want in zip(vjp(fused_interpret), vjp(dot_interaction)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 13])  # one program per example
+def test_fused_odd_batches(batch, rng):
+    x = rng.normal(size=(batch, 16)).astype(np.float32)
+    feats = rng.normal(size=(batch, 3, 16)).astype(np.float32)
+    got = fused_interpret(jnp.asarray(x), jnp.asarray(feats))
     np.testing.assert_allclose(np.asarray(got), _oracle(x, feats, 1),
                                atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("batch", [7, 13, 107])  # not multiples of 8
-def test_pallas_ragged_batches(batch, rng):
-    """Batches not divisible by 8 are zero-padded to a tiled grid and
-    sliced back — never a whole-batch VMEM tile (fwd AND bwd)."""
-    x = rng.normal(size=(batch, 8)).astype(np.float32)
-    feats = rng.normal(size=(batch, 3, 8)).astype(np.float32)
-    got = fused_dot_interaction(jnp.asarray(x), jnp.asarray(feats), 1)
-    np.testing.assert_allclose(np.asarray(got), _oracle(x, feats, 1),
-                               atol=1e-5, rtol=1e-5)
+@pytest.mark.parametrize("f,d,ok", [
+    (27, 16, True), (27, 128, True), (64, 16, True),
+    (27, 8, False),    # below the smallest Triton dot tile
+    (27, 24, False),   # not a power of two
+    (65, 16, False),   # too many rows for one register tile
+])
+def test_fused_supported_shapes(f, d, ok):
+    assert interaction_triton.supported(f, d) is ok
 
-    def loss(x, feats):
-        return jnp.sum(jnp.sin(
-            fused_dot_interaction(x, feats, 1).astype(jnp.float32)))
 
-    def oracle_loss(x, feats):
-        from dlrm_tpu.ops.interaction import dot_interaction
-        return jnp.sum(jnp.sin(
-            dot_interaction(x, feats, 1).astype(jnp.float32)))
+def test_fused_refuses_unsupported_width():
+    x = jnp.zeros((2, 8), jnp.float32)
+    with pytest.raises(ValueError, match="power-of-two D"):
+        fused_interpret(x, jnp.zeros((2, 3, 8), jnp.float32))
 
-    gx, gf = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
-                                            jnp.asarray(feats))
-    ox, of = jax.grad(oracle_loss, argnums=(0, 1))(jnp.asarray(x),
-                                                   jnp.asarray(feats))
-    np.testing.assert_allclose(np.asarray(gx), np.asarray(ox),
-                               atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(gf), np.asarray(of),
-                               atol=1e-4, rtol=1e-4)
+
+def test_fused_byte_floor_at_kaggle_fs128():
+    """The least traffic a fused kernel moves at Kaggle fs=128, B=32768:
+    T = 453 MB, output 63 MB; forward T + out, backward 2T + out."""
+    mb = interaction_triton.min_bytes(32768, 27, 128)
+    t, out = 32768 * 27 * 128 * 4, 32768 * (128 + 351) * 4
+    assert mb == {"forward": t + out, "backward": 2 * t + out,
+                  "total": 3 * t + 2 * out}
+    assert round(mb["total"] / 1e9, 2) == 1.48

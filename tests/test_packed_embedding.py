@@ -176,3 +176,83 @@ def test_translate_ids_nhot_equals_num_tables(rng):
         off = c.table_offsets[t]
         want = logical[off + ids[:, t]].sum(axis=1)
         np.testing.assert_allclose(np.asarray(got)[:, t], want, atol=1e-6)
+
+
+# -- exact lane-slot selection ----------------------------------------------
+# Slot extraction and expansion are selects, not one-hot matmuls: a matmul
+# would run in TF32 at the GPU's default precision and round stored values.
+# Bit patterns with full mantissas (and an int8 stack) must come back
+# unchanged whatever the matmul precision.
+
+@pytest.mark.parametrize("pack,dtype", [(2, jnp.float32), (8, jnp.float32),
+                                        (16, jnp.float32),
+                                        (8, jnp.bfloat16), (8, jnp.int8)])
+def test_extract_slots_returns_stored_bits(pack, dtype, rng):
+    d = 128 // pack
+    if dtype == jnp.int8:
+        rows = rng.integers(-127, 128, size=(64, pack * d))
+    else:
+        rows = rng.normal(size=(64, pack * d))
+    rows = jnp.asarray(rows, dtype)
+    slot = jnp.asarray(rng.integers(0, pack, size=64), jnp.int32)
+    with jax.default_matmul_precision("default"):
+        got = jax.jit(lambda g, s: emb_ops.extract_slots(
+            g, s, pack=pack, d=d))(rows, slot)
+    want = np.asarray(rows).reshape(64, pack, d)[np.arange(64),
+                                                  np.asarray(slot)]
+    assert got.dtype == rows.dtype
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.mark.parametrize("pack", [2, 8, 16])
+def test_expand_slots_places_rows_exactly(pack, rng):
+    d = 128 // pack
+    upd = jnp.asarray(rng.normal(size=(32, 3, d)), jnp.float32)
+    slot = jnp.asarray(rng.integers(0, pack, size=(32, 3)), jnp.int32)
+    with jax.default_matmul_precision("default"):
+        out = np.asarray(emb_ops.expand_slots(upd, slot, pack=pack))
+    out = out.reshape(32, 3, pack, d)
+    s = np.asarray(slot)
+    for b in range(32):
+        for t in range(3):
+            np.testing.assert_array_equal(out[b, t, s[b, t]],
+                                          np.asarray(upd)[b, t])
+            others = np.delete(out[b, t], s[b, t], axis=0)
+            assert not others.any()
+    # expand then extract is the identity on the rows, bit for bit
+    back = emb_ops.extract_slots(jnp.asarray(out.reshape(32, 3, -1)),
+                                 slot, pack=pack, d=d)
+    np.testing.assert_array_equal(np.asarray(back), np.asarray(upd))
+
+
+def test_small_table_lookup_is_a_gather(rng):
+    """Small tables: stored rows back bit for bit (f32), multi-hot sums in
+    f32, and a dense table gradient that sums duplicate ids."""
+    tab = jnp.asarray(rng.normal(size=(7, 16)), jnp.float32)
+    ids = jnp.asarray([0, 3, 3, 6, 3], jnp.int32)
+    with jax.default_matmul_precision("default"):
+        got = emb_ops.small_table_lookup(tab, ids, jnp.float32)
+        np.testing.assert_array_equal(np.asarray(got),
+                                      np.asarray(tab)[np.asarray(ids)])
+        g = jax.grad(lambda t: emb_ops.small_table_lookup(
+            t, ids, jnp.float32).sum())(tab)
+    np.testing.assert_array_equal(np.asarray(g)[:, 0],
+                                  [1, 0, 0, 3, 0, 0, 1])
+    hot = jnp.asarray([[0, 3], [6, 6]], jnp.int32)
+    np.testing.assert_allclose(
+        np.asarray(emb_ops.small_table_lookup(tab, hot, jnp.float32)),
+        np.asarray(tab)[[0, 6]] + np.asarray(tab)[[3, 6]], rtol=1e-6)
+
+
+def test_mixed_lookup_returns_stored_rows_bit_for_bit(rng):
+    """The whole engine lookup (packed gather + slot extract + small-table
+    gather) at default precision equals indexing the logical tables."""
+    c = dataclasses.replace(_config(), small_table_threshold=40)
+    params = dlrm_tpu.init_params(jax.random.key(3), c)
+    batch = synthetic.random_batch(rng, c, 64)
+    with jax.default_matmul_precision("default"):
+        got = jax.jit(lambda e, s: emb_ops.mixed_lookup(e, s, c))(
+            params["emb"], jnp.asarray(batch["sparse"]))
+    logical = np.asarray(emb_ops.unpack_tables(params["emb"], c))
+    want = logical[batch["sparse"] + np.asarray(c.table_offsets)]
+    np.testing.assert_array_equal(np.asarray(got), want)

@@ -1,8 +1,8 @@
 """int8 quantized serving path (ops/quant.py).
 
 The reference has no quantized inference (tables are f32/bf16 only); this
-is a serving capability extension motivated by TPU HBM capacity (the
-Kaggle fs=128 stack is 17.3 GB f32 vs ~4.4 GB int8).  Tests pin:
+is a serving capability extension motivated by device-memory capacity
+(the Kaggle fs=128 stack is 17.3 GB f32 vs ~4.4 GB int8).  Tests pin:
 error bounds of the symmetric per-row scheme, bit-parity of the
 quantized lookup against the dequantized-storage oracle on every storage
 layout, end-to-end forward closeness, geometry guards, and the CLI.

@@ -1,7 +1,7 @@
 """Sharded-vs-single-device parity for the hybrid embedding path.
 
 The reference has no distributed tests (single-node code, SURVEY.md §4);
-the TPU framework's key new invariant is: the shard_map all-to-all lookup
+this framework's key new invariant is: the shard_map all-to-all lookup
 and sparse update over an N-device mesh must be numerically identical to the
 single-device stacked-table path.
 """

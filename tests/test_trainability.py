@@ -104,7 +104,7 @@ def test_auc_climbs_at_fs128_bf16():
     bf16 storage + rowwise adagrad (the bench.py fs=128 production combo)
     lifts held-out AUC on the planted-truth CTR task.  Also guards the
     wide-row lr regime (adagrad sign-steps saturate at fs=128 with the
-    fs=16 lr; see ROUND4_NOTES)."""
+    fs=16 lr)."""
     import dataclasses
     config = dataclasses.replace(
         dlrm_tpu.DLRMConfig(
